@@ -1,7 +1,7 @@
 """Carry state over from the JAX package.
 
-The reference's ``LevelGrids`` and ``FrameState`` fields, read as numpy
-arrays, become the port's objects, so tests can run both packages from
+The reference's ``LevelGrids``, ``FrameState`` and ``ShearWarp`` fields,
+read as numpy arrays, become the port's objects, so tests can run both packages from
 the same state (the renderer's analog of loading a reference model's
 weights).  Works on the reference objects without importing ``jax``:
 every field is read through ``numpy.asarray``.
@@ -14,7 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .render.camera import Camera
 from .render.frame import FrameState
+from .render.shearwarp import ShearWarp
 from .render.slabs import LevelGrids
 
 
@@ -47,3 +49,22 @@ def frame_state_from_reference(ref) -> FrameState:
         v = np.asarray(getattr(ref, f.name))
         kw[f.name] = v if v.ndim else v[()]
     return FrameState(**kw)
+
+
+def shearwarp_from_reference(ref) -> ShearWarp:
+    """The reference's ``ShearWarp`` factorization as the port's (host
+    numpy and floats), so both packages' warps can take one
+    factorization."""
+    cam = ref.camera
+    return ShearWarp(
+        camera=Camera(*(np.asarray(v, np.float32) for v in (
+            cam.pos, cam.dir00, cam.dir_du, cam.dir_dv))),
+        width=int(ref.width), height=int(ref.height),
+        hom=np.asarray(ref.hom, np.float64), axis=int(ref.axis),
+        sign=float(ref.sign), u_lo=float(ref.u_lo),
+        u_step=float(ref.u_step),
+        coef_u=tuple(float(c) for c in ref.coef_u), v_lo=float(ref.v_lo),
+        v_step=float(ref.v_step),
+        coef_v=tuple(float(c) for c in ref.coef_v),
+        screen=tuple(int(s) for s in ref.screen),
+    )

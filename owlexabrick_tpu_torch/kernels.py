@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface under ``build/torch_kernels/``
-at the repository root, at first use, and loaded with ``ctypes`` (a few
-seconds to build, where ``torch.utils.cpp_extension.load`` takes
-minutes).  Nothing is built or loaded when this module is imported.
+``csrc/*.cu`` are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+process per source, all started together, and linked into one shared
+library with a plain C interface under ``build/torch_kernels/`` at the
+repository root, at first use, and loaded with ``ctypes`` (a few seconds
+to build, where ``torch.utils.cpp_extension.load`` takes minutes).
+Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 
-# must match csrc/sweep.cu
+# must match csrc/sweep.cu and csrc/warp.cu
 MAX_LEVELS = 8
 MAX_CHANNELS = 4
 
@@ -26,8 +27,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "torch_ke
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: each multiply and add rounds on its own, like the plain
 # torch versions the kernels are checked against
-NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lib = None
 _build_log = ""
@@ -67,20 +68,39 @@ def build(force: bool = False) -> pathlib.Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources()]]
+    nvcc = _nvcc()
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    tmp = os.path.join(tmpdir, out.name)
+    log = []
+
+    def finish(cmd, proc):
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        return proc.returncode
+
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        _build_log = " ".join(cmd) + "\n" + res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{_build_log}")
+        # one nvcc per source, all started together, then one link
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o",
+                   os.path.join(tmpdir, src.stem + ".o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        rcs = [finish(cmd, proc) for cmd, proc in jobs]
+        if not any(rcs):
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                   *[os.path.join(tmpdir, s.stem + ".o")
+                     for s in _sources()]]
+            rcs.append(finish(cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        _build_log = "\n".join(log)
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed ({rcs}):\n{_build_log}")
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out
 
 
@@ -97,6 +117,13 @@ def load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.owx_sweep_chunk.argtypes = [vp, ci, vp, ci, vp, ci, vp]
         lib.owx_sweep_chunk.restype = ci
+        ll = ctypes.c_longlong
+        lib.owx_warp_pass1.argtypes = [vp, ll, ll, vp, vp, vp, ci, ci, ci,
+                                       ci, ci, vp]
+        lib.owx_warp_pass1.restype = ci
+        lib.owx_warp_pass2.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                       vp]
+        lib.owx_warp_pass2.restype = ci
         lib.owx_error_string.argtypes = [ci]
         lib.owx_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,11 +1,14 @@
-"""High-level renderer, aligned DVR only (the port of the slab fast path
-of ``owlexabrick_tpu/render/renderer.py``): owns the level grids, the
-frame state and the accumulation buffer, and renders progressive frames
-of an axis-aligned camera through ``render_slabs_camera``.
+"""High-level renderer, DVR on the slab fast path (the port of the fast
+path of ``owlexabrick_tpu/render/renderer.py``): owns the level grids,
+the frame state and the accumulation buffer, and renders progressive
+frames through ``render_slabs_camera``: an axis-aligned camera directly,
+any other camera through shear-warp (an axis-aligned lattice camera plus
+the two-pass warp), and a frustum no axis can factorize through the
+``reorient_grids`` preview.
 
-Not ported yet (each raises NotImplementedError): tilted cameras
-(shear-warp), surfaces, iso surfaces, contour planes, the clip box, AO,
-gradient shading, and the exact wavefront path.
+Not ported yet (each raises NotImplementedError): surfaces, iso
+surfaces, contour planes, the clip box, AO, gradient shading, and the
+exact wavefront path.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from .camera import Camera
 from .dvr import accumulate, composite_background, pack_rgba8
 from .frame import FrameState, make_frame_state, with_camera
+from .shearwarp import inter_dims, setup_shearwarp, warp_image
 from .slabs import (
     SlabConfig,
     camera_to_voxel,
@@ -27,6 +31,7 @@ from .slabs import (
     level_grids_from_cells,
     principal_axis,
     render_slabs_camera,
+    reorient_grids,
 )
 
 
@@ -159,42 +164,112 @@ class Renderer:
         if bool(fs.clip_enabled):
             raise NotImplementedError("the clip box is not ported yet")
 
+    def _slab_config(self, grids) -> SlabConfig:
+        """Slab spacing = dt * finest cell width over the sweep extent
+        (integrateBrick's dt, exabrick.cu:1129)."""
+        extent = float(grids.bounds_hi[0] - grids.bounds_lo[0])
+        finest = float(min(1 << l for l in grids.levels))
+        nslabs = int(np.ceil(extent / (float(self.fs.dt) * finest)))
+        return SlabConfig(num_channels=self.cfg.num_channels, nslabs=nslabs,
+                          adaptive_stride=self.cfg.adaptive_stride)
+
     def enable_fast_path(self) -> bool:
-        """Switch to the slab-sweep path for the current axis-aligned
-        camera.  Returns True when active."""
+        """Switch to the slab-sweep path: an axis-aligned camera sweeps
+        directly, any other through shear-warp, and a frustum that no
+        axis can factorize through the reorientation preview.  Returns
+        True when active."""
         self._check_supported()
         cam = camera_to_voxel(self._camera_from_fs(), self.voxel_from_world)
         view = np.asarray(cam.dir00) + 0.5 * (
             self.width * np.asarray(cam.dir_du)
             + self.height * np.asarray(cam.dir_dv))
         axis = principal_axis(view)
-        if not check_separable(cam, axis):
-            raise NotImplementedError(
-                "tilted cameras need shear-warp, which is not ported yet")
-        grids = self._grids_for(axis)
-        extent = float(grids.bounds_hi[0] - grids.bounds_lo[0])
-        finest = float(min(1 << l for l in grids.levels))
-        nslabs = int(np.ceil(extent / (float(self.fs.dt) * finest)))
-        self._fast = (grids, SlabConfig(
-            num_channels=self.cfg.num_channels, nslabs=nslabs,
-            adaptive_stride=self.cfg.adaptive_stride))
+        if check_separable(cam, axis):
+            grids = self._grids_for(axis)
+            cam_r = None  # the plain voxel-space camera sweeps directly
+        else:
+            pick = self._pick_shearwarp(cam)
+            if pick is not None:
+                grids = self._grids_for(pick[0])
+                cam_r = "shearwarp"
+            else:
+                grids, cam_r = reorient_grids(self._grids_for(2), cam)
+        self._fast = (grids, self._slab_config(grids), cam_r)
         return True
+
+    def _pick_shearwarp(self, cam_v):
+        """Least-oblique shear-warp factorization of a voxel-frame camera:
+        axes scored by the worst corner-ray alignment min |r_axis| / |r|
+        (a sign change scores -inf) and tried best-first.  Returns
+        (axis, ShearWarp), or None when every axis fails."""
+        d00 = np.asarray(cam_v.dir00, np.float64)
+        du = np.asarray(cam_v.dir_du, np.float64)
+        dv = np.asarray(cam_v.dir_dv, np.float64)
+        corners = np.stack([
+            d00 + u * du + v * dv
+            for u, v in ((0.0, 0.0), (self.width, 0.0),
+                         (0.0, self.height), (self.width, self.height))
+        ])  # (4, 3) voxel (x, y, z)
+        rn = np.linalg.norm(corners, axis=1)
+        scores = np.empty(3)
+        for axis in range(3):
+            ra = corners[:, axis]
+            if np.any(ra > 0) and np.any(ra < 0):
+                scores[axis] = -np.inf
+            else:
+                scores[axis] = float(np.min(np.abs(ra) / rn))
+        iw, ih = inter_dims(self.width, self.height)
+        for axis in np.argsort(-scores):
+            if not np.isfinite(scores[axis]):
+                break
+            sw = setup_shearwarp(cam_v, int(axis), self.width, self.height,
+                                 iw, ih)
+            if sw is not None:
+                return int(axis), sw
+        return None
 
     def _render_fast(self) -> np.ndarray:
         self._check_supported()
-        grids, scfg = self._fast
+        grids, scfg, cam_r = self._fast
         jx, jy = self._jitter(int(self.fs.frame_id))
-        cam = camera_to_voxel(self._camera_from_fs(), self.voxel_from_world)
-        # per-frame sub-pixel jitter as a whole-grid shift (separability)
-        cam = Camera(pos=cam.pos,
-                     dir00=cam.dir00 + jx * cam.dir_du + jy * cam.dir_dv,
-                     dir_du=cam.dir_du, dir_dv=cam.dir_dv)
+        shear = None
+        lattice = None
+        rw, rh = self.width, self.height
+        if cam_r == "shearwarp":
+            # factorize per frame (host math): orbiting re-picks the axis
+            # and the lattice without rebuilding grids
+            cam_v = camera_to_voxel(self._camera_from_fs(),
+                                    self.voxel_from_world)
+            pick = self._pick_shearwarp(cam_v)
+            if pick is None:
+                # too oblique for every axis mid-orbit: this frame goes
+                # through the reorientation preview
+                grids, cam_r = reorient_grids(self._grids_for(2), cam_v)
+                scfg = self._slab_config(grids)
+            else:
+                axis, shear = pick
+                grids = self._grids_for(axis)
+                scfg = self._slab_config(grids)
+                # lattice-phase jitter: the intermediate rays move each
+                # frame and the warp compensates (shift_i/shift_j)
+                lattice = shear.lattice(jx, jy)
+                cam = shear.camera
+                rw, rh = shear.width, shear.height
+        if shear is None:
+            cam = cam_r if cam_r is not None else camera_to_voxel(
+                self._camera_from_fs(), self.voxel_from_world)
+            # per-frame sub-pixel jitter as a whole-grid shift
+            cam = Camera(pos=cam.pos,
+                         dir00=cam.dir00 + jx * cam.dir_du + jy * cam.dir_dv,
+                         dir_du=cam.dir_du, dir_dv=cam.dir_dv)
         # static pose at frame 0 (a TF edit resets accumulation, the pose
         # and its frame-0 jitter stay): reuse the camera products
         pose = (np.asarray(cam.pos).tobytes(),
                 np.asarray(cam.dir00).tobytes(),
                 np.asarray(cam.dir_du).tobytes(),
-                np.asarray(cam.dir_dv).tobytes(), self.width, self.height)
+                np.asarray(cam.dir_dv).tobytes(), rw, rh,
+                None if lattice is None else tuple(
+                    np.asarray(l).tobytes() for l in lattice))
         cam_cache = None
         if (int(self.fs.frame_id) == 0 and pose == self._last_pose
                 and self._last_pose_grids is grids):
@@ -204,10 +279,15 @@ class Renderer:
         self._last_pose = pose
         self._last_pose_grids = grids
 
-        rgba = render_slabs_camera(grids, self.fs, scfg, cam, self.width,
-                                   self.height, camera_cache=cam_cache)
+        rgba = render_slabs_camera(grids, self.fs, scfg, cam, rw, rh,
+                                   camera_cache=cam_cache, lattice=lattice)
         bg = torch.zeros(3, dtype=torch.float32, device=self.device)
         color = composite_background(rgba, bg)
+        if shear is not None:
+            # one screen-space homography warp finishes the frame
+            color = warp_image(color, shear, self.width, self.height,
+                               jx=0.5 + jx, jy=0.5 + jy, shift_i=jx,
+                               shift_j=jy)
         self.accum, shown = accumulate(color, self.accum,
                                        int(self.fs.frame_id))
         words = pack_rgba8(shown).cpu().numpy().astype(np.uint32)

@@ -1,5 +1,7 @@
-"""Slab-sweep DVR for axis-aligned cameras (the port of
-``owlexabrick_tpu/render/slabs.py``, megakernel lane only).
+"""Slab-sweep DVR for axis-aligned cameras and shear-warp lattice
+cameras (the port of ``owlexabrick_tpu/render/slabs.py``, megakernel
+lane only), and the ``reorient_grids`` preview for frusta no axis can
+factorize.
 
 The AMR field is held as dense per-level voxel grids (value + cell mask);
 summing tent-weighted contributions over levels is exactly the exa-brick
@@ -303,6 +305,133 @@ def camera_to_voxel(camera, voxel_from_world):
     )
 
 
+def reorient_grids(grids: LevelGrids, camera):
+    """Resample the level grids into a camera-aligned frame so the aligned
+    sweep applies to a camera no shear-warp axis can factorize (the
+    Renderer's bounded-time preview for wide-fov near-diagonal views).
+
+    The rotated lattice holds trilinear resamples of the (value*mask) and
+    mask grids (host numpy + ``scipy.ndimage.affine_transform``, as in the
+    JAX package).  Returns (rotated LevelGrids on the grids' device, the
+    camera in the rotated frame: separable, du along grid x, dv along
+    grid y, view along z)."""
+    from scipy import ndimage
+
+    from .camera import Camera
+
+    du = np.asarray(camera.dir_du, np.float64)
+    dv = np.asarray(camera.dir_dv, np.float64)
+    # orthonormal camera frame (du, dv are orthogonal for look_at cameras)
+    u = du / np.linalg.norm(du)
+    v = dv - (dv @ u) * u
+    v = v / np.linalg.norm(v)
+    w = np.cross(u, v)
+    # sweep axis points along the mean view direction
+    if np.asarray(camera.dir00, np.float64) @ w < 0:
+        w = -w
+        v = -v  # keep the frame right-handed with w flipped
+    r = np.stack([u, v, w], axis=1)  # world = r @ cam
+
+    # un-permute current grids to world (x, y, z) axis order
+    perm = _perm(grids.axis)  # grid (z,y,x) = world axes perm
+    inv = [0, 0, 0]
+    for gi, wa in enumerate(perm):
+        inv[wa] = gi  # world axis wa lives at grid index inv[wa]
+
+    # world-space corners of the current bounds -> camera-frame AABB
+    lo_g = np.asarray(grids.bounds_lo, np.float64)
+    hi_g = np.asarray(grids.bounds_hi, np.float64)
+    lo_w = np.asarray([lo_g[inv[a]] for a in range(3)])
+    hi_w = np.asarray([hi_g[inv[a]] for a in range(3)])
+    corners = np.asarray(
+        [[lo_w[0] if i & 1 == 0 else hi_w[0],
+          lo_w[1] if i & 2 == 0 else hi_w[1],
+          lo_w[2] if i & 4 == 0 else hi_w[2]] for i in range(8)]
+    )
+    cam_corners = corners @ r  # r^T applied to rows
+    center = 0.5 * (cam_corners.min(axis=0) + cam_corners.max(axis=0))
+
+    # fixed output dims (the rotation-max cube): every orientation gets
+    # the same shapes
+    diag = float(np.linalg.norm(hi_w - lo_w))
+
+    new_vals, new_masks, new_origins = [], [], []
+    for li, L in enumerate(grids.levels):
+        cw = float(1 << L)
+        nfix = int(np.ceil(diag / cw)) + 2
+        org_new = np.floor(center / cw - nfix / 2).astype(np.int64)
+        org_old = np.asarray(grids.origins[li], np.float64)  # grid order
+        # in_index = m @ out_index + off, both in (z, y, x) order; out grid
+        # order (z, y, x) = camera axes (2, 1, 0)
+        m = np.zeros((3, 3))
+        off = np.zeros(3)
+        for a in range(3):  # world axis
+            gi = inv[a]  # slot in the old grid's (z, y, x)
+            for b in range(3):  # camera axis
+                m[gi, 2 - b] = r[a, b]
+            off[gi] = (r[a] @ ((org_new + 0.5) * cw) / cw
+                       - org_old[gi] - 0.5)
+
+        def resample(arr):
+            return ndimage.affine_transform(
+                arr, m, offset=off, output_shape=(nfix, nfix, nfix),
+                order=1, mode="constant", cval=0.0)
+
+        new_masks.append(resample(grids.masks[li].cpu().numpy()).astype(
+            np.float32))
+        vals = grids.vals[li].cpu().numpy()
+        new_vals.append(np.stack([resample(vals[c])
+                                  for c in range(vals.shape[0])]).astype(
+            np.float32))
+        new_origins.append(
+            np.asarray([org_new[2], org_new[1], org_new[0]], np.float32))
+
+    # fixed sweep bounds (the rotation-max cube of the finest lattice)
+    cw0 = float(1 << grids.levels[0])
+    n0 = int(np.ceil(diag / cw0)) + 2
+    lo_xyz = (np.floor(center / cw0 - n0 / 2)) * cw0
+    hi_xyz = lo_xyz + n0 * cw0
+    lo_p = np.asarray([lo_xyz[2], lo_xyz[1], lo_xyz[0]], np.float32)
+    hi_p = np.asarray([hi_xyz[2], hi_xyz[1], hi_xyz[0]], np.float32)
+    zr = _compute_zranges(list(grids.levels), new_vals, new_masks,
+                          new_origins, lo_p, hi_p)
+
+    # TF-cull value tables: rotated cells hold weight-scaled values, so
+    # the bounded quantity is the ratio val/mask (a convex combination of
+    # original cell values)
+    vr_zy = []
+    for v_, mk in zip(new_vals, new_masks):
+        ratio = np.where(mk[None] > 0, v_ / np.maximum(mk[None], 1e-20),
+                         0.0).astype(np.float32)
+        vr_zy.append(_vrange_zy(ratio, mk))
+
+    dev = grids.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    grids_rot = LevelGrids(
+        vals=tuple(t(v_) for v_ in new_vals),
+        masks=tuple(t(mk) for mk in new_masks),
+        origins=tuple(new_origins),
+        zranges=t(zr),
+        bounds_lo=lo_p,
+        bounds_hi=hi_p,
+        vrange_zy=tuple(t(tb) for tb, _ in vr_zy),
+        levels=grids.levels,
+        num_channels=grids.num_channels,
+        axis=2,  # the camera frame's z is the sweep axis
+        y_bin=tuple(b for _, b in vr_zy),
+    )
+    cam_rot = Camera(
+        pos=(np.asarray(camera.pos, np.float64) @ r).astype(np.float32),
+        dir00=(np.asarray(camera.dir00, np.float64) @ r).astype(np.float32),
+        dir_du=(du @ r).astype(np.float32),
+        dir_dv=(dv @ r).astype(np.float32),
+    )
+    return grids_rot, cam_rot
+
+
 # ----------------------------------------------------------------------------
 # transfer-function knot compression (host numpy)
 # ----------------------------------------------------------------------------
@@ -473,25 +602,35 @@ class SlabConfig:
     # adaptive z-stride (the reference's per-region dt = global_dt *
     # finestLevelCellWidth, exabrick.cu:1129)
     adaptive_stride: bool = False
-    # run the plain-torch sweep even for CUDA tensors: the explicit
-    # comparison lane for the kernel, never chosen implicitly
+    # run the plain-torch sweep (and, in render_slabs_shearwarp, the
+    # plain two-pass warp) even for CUDA tensors: the explicit comparison
+    # lane for the kernels, never chosen implicitly
     plain_sweep: bool = False
 
 
+def _ray_rows(d00, cam_dv, height: int, lattice):
+    """Per-row lateral ray component ry (float64): from the lattice's row
+    array when given, else the affine camera's."""
+    if lattice is not None:
+        return np.asarray(lattice[1], np.float64)
+    dv1 = float(np.asarray(cam_dv, np.float64)[1])
+    return d00[1] + (np.arange(height) + 0.5) * dv1
+
+
 def y_crop_for_camera(grids: LevelGrids, cfg: SlabConfig, cam_pos,
-                      cam_dir00, cam_dv, height: int):
+                      cam_dir00, cam_dv, height: int, lattice=None):
     """Global per-level y crop (c0, rows) covering every lattice row any
     of this render's rays can reach over the whole sweep — exact (tent
     weights outside the reach are zero).  c0 aligns to lcm(8, y_bin) so
     the TF-cull bins slice exactly; rows is 16-bucketed.  None when no
-    level saves >= 25%."""
+    level saves >= 25%.  ``lattice``: the ((W,), (H,)) ray arrays of a
+    shear-warp lattice camera (ry from ``lattice[1]``)."""
     pos = np.asarray(cam_pos, np.float64)
     d00 = np.asarray(cam_dir00, np.float64)
     rz = float(d00[0])
     if rz == 0.0:
         return None
-    dv1 = float(np.asarray(cam_dv, np.float64)[1])
-    ry = d00[1] + (np.arange(height) + 0.5) * dv1
+    ry = _ray_rows(d00, cam_dv, height, lattice)
     z_lo, z_hi = float(grids.bounds_lo[0]), float(grids.bounds_hi[0])
     oz, oy = float(pos[0]), float(pos[1])
     dzs = (z_hi - z_lo) / max(cfg.nslabs, 1)
@@ -543,19 +682,19 @@ def crop_grids_y(grids: LevelGrids, crops) -> LevelGrids:
 
 
 def ky_hints_for_camera(grids: LevelGrids, cfg: SlabConfig, cam_pos,
-                        cam_dir00, cam_dv, height: int, width: int):
+                        cam_dir00, cam_dv, height: int, width: int,
+                        lattice=None):
     """Per-level y-window row counts: the worst row-tile ray span at the
     farthest slab plus the chunk's depth-scale variation, with margin,
     in 16-row buckets.  The port reads no windows; the hints feed the
     chunk-depth rule (``effective_chunk``) exactly as in the JAX
-    package."""
+    package.  ``lattice`` as in ``y_crop_for_camera``."""
     pos = np.asarray(cam_pos, np.float64)
     d00 = np.asarray(cam_dir00, np.float64)
     rz = float(d00[0])
     if rz == 0.0:
         return None
-    dv1 = float(np.asarray(cam_dv, np.float64)[1])
-    ry = d00[1] + (np.arange(height) + 0.5) * dv1
+    ry = _ray_rows(d00, cam_dv, height, lattice)
     z_lo, z_hi = float(grids.bounds_lo[0]), float(grids.bounds_hi[0])
     oz = float(pos[0])
     scale_max = max(abs(z_lo - oz), abs(z_hi - oz)) / abs(rz)
@@ -603,18 +742,23 @@ def _f32(v, device) -> torch.Tensor:
 
 
 def ray_components(cam_dir00, cam_du, cam_dv, width: int, height: int,
-                   device):
+                   device, lattice=None):
     """Separable ray components in the grid frame, r(i, j) = dir00 +
-    (i+.5) du + (j+.5) dv with du along grid x and dv along grid y:
+    (i+.5) du + (j+.5) dv with du along grid x and dv along grid y, or
+    taken from ``lattice`` ((W,), (H,)) when given (any monotone separable
+    lattice sweeps exactly; shear-warp uses a perspective-adaptive one):
     rx (W,), ry (H,) on ``device``, and sec (H, W) = |r| / |rz|, the
     path length per unit z."""
     d00 = np.asarray(cam_dir00, np.float32)
-    i_ = torch.arange(width, dtype=torch.float32) + 0.5
-    j_ = torch.arange(height, dtype=torch.float32) + 0.5
-    rx = (_f32(d00[2], "cpu") + i_ * _f32(np.asarray(cam_du)[2], "cpu")
-          ).to(device)
-    ry = (_f32(d00[1], "cpu") + j_ * _f32(np.asarray(cam_dv)[1], "cpu")
-          ).to(device)
+    if lattice is None:
+        i_ = torch.arange(width, dtype=torch.float32) + 0.5
+        j_ = torch.arange(height, dtype=torch.float32) + 0.5
+        rx = _f32(d00[2], "cpu") + i_ * _f32(np.asarray(cam_du)[2], "cpu")
+        ry = _f32(d00[1], "cpu") + j_ * _f32(np.asarray(cam_dv)[1], "cpu")
+    else:
+        rx, ry = (torch.from_numpy(np.ascontiguousarray(l, np.float32))
+                  for l in lattice)
+    rx, ry = rx.to(device), ry.to(device)
     rz = _f32(d00[0], device)
     sec = torch.sqrt(ry[:, None] * ry[:, None] + rx[None, :] * rx[None, :]
                      + rz * rz) / torch.abs(rz)
@@ -641,10 +785,11 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                  cam_du, cam_dv, width: int, height: int, knots=None,
                  ky_hints=None, products=None, return_products: bool = False,
                  products_chunks: int = 0, light_rest: bool = False,
-                 y_crop=None):
+                 y_crop=None, lattice=None):
     """Sweep-render one frame (``slabs.render_slabs``, megakernel lane).
     Camera vectors are already permuted to the grid frame (z = sweep
-    axis) and separable.  Returns (P, 4) rgba in row-major pixel order.
+    axis) and separable, or ``lattice`` ((W,), (H,)) gives the lateral
+    ray components.  Returns (P, 4) rgba in row-major pixel order.
 
     ``return_products=True`` returns the per-chunk camera products (the
     sweep inputs, frame-state independent) instead of rendering: a tuple
@@ -658,7 +803,8 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     f32 = torch.float32
     h, w = height, width
     d00 = np.asarray(cam_dir00, np.float32)
-    rx, ry, sec = ray_components(cam_dir00, cam_du, cam_dv, w, h, dev)
+    rx, ry, sec = ray_components(cam_dir00, cam_du, cam_dv, w, h, dev,
+                                 lattice=lattice)
 
     z_lo = np.float32(grids.bounds_lo[0])
     dz = slab_spacing(grids, cfg.nslabs)
@@ -872,11 +1018,16 @@ def _cache_budget_mb(cfg: SlabConfig, device) -> float:
 
 
 def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
-                        width: int, height: int, camera_cache=None):
+                        width: int, height: int, camera_cache=None,
+                        lattice=None):
     """Permute/validate the camera, render transposed when pixel x runs
     along grid y, pick the sweep direction from the view sign, crop the
     grids to the rows the rays reach, compress the transfer function to
     knots, and render.  Returns (P, 4) rgba in row-major pixel order.
+
+    ``lattice``: ((W,), (H,)) lateral ray components of a shear-warp
+    intermediate camera (``ShearWarp.lattice``); such a camera supplies
+    only its eye and sweep direction and is never swapped.
 
     ``camera_cache``: optional dict owned by the caller.  The per-chunk
     camera products are computed once per (grids, camera, cfg) key and
@@ -885,18 +1036,22 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
     light entries (mids recomputed per frame).  The stale pose's products
     are dropped before a rebuild.  Output is identical either way."""
     axis = grids.axis
-    mapping = separable_mapping(camera, axis)
-    if mapping is None:
-        raise ValueError(
-            "camera is not separable along the grid sweep axis; only "
-            "axis-aligned cameras are ported")
-    (swapped,) = mapping
+    if lattice is not None:
+        swapped = False
+    else:
+        mapping = separable_mapping(camera, axis)
+        if mapping is None:
+            raise ValueError(
+                "camera is not separable along the grid sweep axis; "
+                "tilted cameras go through render_slabs_shearwarp")
+        (swapped,) = mapping
     pos, dir00, du, dv = permute_camera(camera, axis)
     cfg = dataclasses.replace(cfg, flip=bool(dir00[0] < 0))
 
     y_crop = (y_crop_for_camera(grids, cfg, pos, dir00, du, width)
               if swapped else
-              y_crop_for_camera(grids, cfg, pos, dir00, dv, height))
+              y_crop_for_camera(grids, cfg, pos, dir00, dv, height,
+                                lattice=lattice))
 
     # host-side PWL compression of the transfer function (~10x fewer
     # classification knots for control-point colormaps)
@@ -909,6 +1064,8 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
         camera_cache.pop("declined", None)
         key_cam = tuple(np.asarray(v, np.float64).tobytes()
                         for v in (pos_, dir00_, du_, dv_))
+        key_lat = (None if lattice is None else tuple(
+            np.asarray(l, np.float32).tobytes() for l in lattice))
         # size gate from the port's own layout: per chunk, per level,
         # (C+1) fp32 mids of (S, ny, W)
         ns_pad = cfg.nslabs + cfg.chunk
@@ -930,7 +1087,7 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
                 f"partial: first {m}/{n_act} chunks "
                 f"(~{est / n_act * m / 1e6:.0f} of ~{est / 1e6:.0f} MB)"
                 f" + light artifacts for the remaining {n_act - m}")
-        key = (key_cam, w_, h_, cfg, hints, pc, y_crop)
+        key = (key_cam, key_lat, w_, h_, cfg, hints, pc, y_crop)
         if (camera_cache.get("key") != key
                 or camera_cache.get("grids_ref") is not grids):
             # free the previous pose's products before building the new
@@ -939,17 +1096,19 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
             camera_cache["products"] = render_slabs(
                 grids, fs, cfg, pos_, dir00_, du_, dv_, w_, h_,
                 ky_hints=hints, return_products=True, products_chunks=pc,
-                light_rest=bool(pc), y_crop=y_crop)
+                light_rest=bool(pc), y_crop=y_crop, lattice=lattice)
             camera_cache["key"] = key
             camera_cache["grids_ref"] = grids
         return camera_cache["products"]
 
     if not swapped:
-        hints = ky_hints_for_camera(grids, cfg, pos, dir00, dv, height, width)
+        hints = ky_hints_for_camera(grids, cfg, pos, dir00, dv, height, width,
+                                    lattice=lattice)
         products = cached_products(pos, dir00, du, dv, width, height, hints)
         return render_slabs(grids, fs, cfg, pos, dir00, du, dv, width,
                             height, knots=knots, ky_hints=hints,
-                            products=products, y_crop=y_crop)
+                            products=products, y_crop=y_crop,
+                            lattice=lattice)
     # transposed internals: the v axis is du and the row count is width
     hints = ky_hints_for_camera(grids, cfg, pos, dir00, du, width, height)
     products = cached_products(pos, dir00, dv, du, height, width, hints)

@@ -89,3 +89,40 @@ def test_main_path_on_card_matches_cpu(cuda):
         24).cpu()
     assert float((plain - want).abs().max()) < 1e-5
     assert float(want[:, 3].max()) > 0.3
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("layout", ["pixel_major", "planar"])
+def test_k2_matches_plain_version(cuda, c, layout):
+    """K2a + K2b (csrc/warp.cu) against warp_two_pass_reference on the
+    card, on white noise (every window clamp shows), with jitter and
+    lattice shifts; the input as (P, C) rows or as a transposed planar
+    (C, P) image, the sweep's layout."""
+    from owlexabrick_tpu_torch.render import warp as PW
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.shearwarp import (
+        inter_dims, setup_shearwarp)
+
+    w, h = 256, 128
+    cam = Camera.look_at([57.6, 51.2, 140.8], [32.0, 32.0, 32.0], [0, 1, 0],
+                         45.0, w, h)
+    iw, ih = inter_dims(w, h)
+    sw = setup_shearwarp(cam, 2, w, h, iw, ih)
+    bi, bj = PW.warp_windows(sw, w, h)
+    rng = np.random.default_rng(c)
+    img = torch.from_numpy(
+        rng.uniform(0, 1, (iw * ih, c)).astype(np.float32)).to(cuda)
+    if layout == "planar":
+        img = img.T.contiguous().T
+    kw = dict(jx=0.63, jy=0.29, shift_i=0.13, shift_j=-0.21)
+    n1, n2 = PW.warp_pass1_cuda.launches, PW.warp_pass2_cuda.launches
+    got = PW.warp_two_pass(img, sw, w, h, bi, bj, **kw)
+    assert PW.warp_pass1_cuda.launches == n1 + 1
+    assert PW.warp_pass2_cuda.launches == n2 + 1
+    want = PW.warp_two_pass(img, sw, w, h, bi, bj, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (w * h, c)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 1e-5
+    cpu = PW.warp_two_pass(img.cpu(), sw, w, h, bi, bj, **kw)
+    assert float((got.cpu() - cpu).abs().max()) < 1e-5

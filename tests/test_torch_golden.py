@@ -1,6 +1,6 @@
-"""PyTorch port, Renderer: the fast_aligned and fast_stride goldens of
-the JAX package (32^3 bench scene, 96x64, 2 frames) rendered through the
-port's Renderer and held to the reference's golden gate
+"""PyTorch port, Renderer: the fast_aligned, fast_stride and
+fast_shearwarp goldens of the JAX package (32^3 bench scene, 96x64, 2
+frames) rendered through the port's Renderer and held to the reference's golden gate
 (tests/test_golden_images.py::_check).  The per-frame jitter is the JAX
 Renderer's (jax.random), fed in as constants."""
 
@@ -24,9 +24,10 @@ def cells():
     return lower, level, scal[None]
 
 
-def _renderer(cells, stride, device="cpu"):
-    cam = Camera.look_at([N / 2, N / 2, N * 2.1], [N / 2, N / 2, N / 2],
-                         [0, 1, 0], 45.0, W, H)
+def _renderer(cells, stride, device="cpu", tilted=False):
+    # tests/test_golden_images.py::_cam
+    eye = [N * 0.9, N * 0.8, N * 2.1] if tilted else [N / 2, N / 2, N * 2.1]
+    cam = Camera.look_at(eye, [N / 2, N / 2, N / 2], [0, 1, 0], 45.0, W, H)
     fs = make_frame_state(cam, 1, [[0.0, 1.05]], dt=1.0, opacity_scale=0.7)
     r = Renderer(cells, W, H,
                  cfg=RenderConfig(num_channels=1, adaptive_stride=stride),
@@ -36,19 +37,23 @@ def _renderer(cells, stride, device="cpu"):
     return r
 
 
-@pytest.mark.parametrize("name,stride", [("fast_aligned", False),
-                                         ("fast_stride", True)])
-def test_port_renderer_golden(cells, name, stride):
-    r = _renderer(cells, stride)
+@pytest.mark.parametrize("name,stride,tilted", [
+    ("fast_aligned", False, False), ("fast_stride", True, False),
+    ("fast_shearwarp", False, True)])
+def test_port_renderer_golden(cells, name, stride, tilted):
+    r = _renderer(cells, stride, tilted=tilted)
+    assert (r._fast[2] == "shearwarp") == tilted
     img = r.image_uint8(r.render_frames(2))
     assert (img[..., :3] > 16).any(), "blank render"
     _check(np.ascontiguousarray(img), name)
 
 
-def test_renderer_static_pose_uses_camera_cache(cells):
+@pytest.mark.parametrize("tilted", [False, True], ids=["aligned", "tilted"])
+def test_renderer_static_pose_uses_camera_cache(cells, tilted):
     """A TF edit at a fixed pose resets accumulation and renders frame 0
-    again through the camera-product cache — the same image."""
-    r = _renderer(cells, True)
+    again through the camera-product cache — the same image (under
+    shear-warp the pose key holds the frame's lattice)."""
+    r = _renderer(cells, True, tilted=tilted)
     a = r.render()
     assert r._cam_cache is None
     r.update_xf(0, r.fs.xf_lut[0, :, :3], r.fs.xf_lut[0, :, 3],
@@ -65,12 +70,12 @@ def test_renderer_unported_features_raise(cells):
     r.fs = dataclasses.replace(r.fs, clip_enabled=np.bool_(True))
     with pytest.raises(NotImplementedError):
         r.render()
+    # a tilted camera is no longer refused: it takes shear-warp
     tilted = Camera.look_at([N * 0.9, N * 0.8, N * 2.1],
                             [N / 2, N / 2, N / 2], [0, 1, 0], 45.0, W, H)
     r = _renderer(cells, False)
     r.update_camera(tilted)
-    with pytest.raises(NotImplementedError):
-        r.enable_fast_path()
+    assert r.enable_fast_path() and r._fast[2] == "shearwarp"
 
 
 def test_default_jitter_is_seeded():
