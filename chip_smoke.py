@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``owlexabrick_tpu_torch/csrc`` and
-drives the port's two paths on the card: the axis-aligned slab-sweep DVR
-and the shear-warp tilted-camera path (an axis-aligned lattice camera
-swept by K1, then the two-pass warp K2a + K2b).  Phases, each of which
-fails the run:
+drives the port's three paths on the card: the axis-aligned slab-sweep
+DVR, the shear-warp tilted-camera path (an axis-aligned lattice camera
+swept by K1, then the two-pass warp K2a + K2b), and the sweep's einsum
+lane (the clip box, DVR gradient shading and multi-channel clip: fields
+rebuilt per slab, then K3 or K4).  Phases, each of which fails the run:
 
 1. device: the card's name and power limit, and the kernel build
    (``nvcc -Xptxas -v``'s report);
@@ -32,18 +33,36 @@ fails the run:
    ``render_slabs_shearwarp``, uncached and cached, then a few
    progressive frames of ``headline_tilted`` through the ``Renderer``;
 7. every row's kernel frame against the plain-torch frame (plain sweep,
-   plain warp) on the card.
+   plain warp) on the card;
+8. K3 and K4 (``csrc/xf.cu``) against ``composite_chunk_reference`` /
+   ``classify_field_reference`` on seeded 1080p fields at S = 12 and
+   S = 24 and on a real chunk of the ``headline_clip`` row, with times
+   from CUDA events;
+9. the einsum lane at 1920x1080 (uncached: it has no product cache):
+   the clipbox golden's box scaled to n on the headline (aligned,
+   ``headline_clip``; through shear-warp, ``headline_tilted_clip``) and
+   on blobs256 (``blobs256_clip``), DVR gradient shading
+   (``headline_gradient``, ``blobs256_gradient``) and two channels under
+   the box (``headline_2ch_clip``); then progressive ``Renderer`` frames
+   with the clip box, aligned and tilted, and with gradient shading;
+10. every einsum-lane row's kernel frame against its plain frame.
 
-Launch counts are set to 0 just before each path and read just after;
-a kernel of a path that launched no time there fails the run.
+Launch counts are set to 0 just before each path (aligned, tilted,
+einsum lane) and read just after; a kernel of a path that launched no
+time there fails the run.  Each kernel's bound is the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s
+and its float32 operations over 67 TFLOP/s (the H100 SXM's published
+peaks), counted from this run's inputs.
 
 ``--profile`` adds a torch.profiler trace of one uncached and one cached
-frame per row: device time by kernel and the device's busy share (Chrome
-traces go to chiprun_out/).
+frame per row (one frame per einsum-lane row): device time by kernel and
+the device's busy share, and Chrome traces of the megakernel rows
+(``phase_profile``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card, and the one before that lists each
-kernel with its launches on the two paths.
+kernel with its launches on the three paths, its error against its plain
+version, its time, its plain version's time and its bound.
 Exits non-zero without a CUDA card or without the port's sources.
 Needs no JAX and no network.
 """
@@ -64,8 +83,24 @@ REPO = pathlib.Path(__file__).resolve().parent
 K1_REPLACES = "owlexabrick_tpu/render/pallas_sweep.py:108"
 K2A_REPLACES = "owlexabrick_tpu/render/pallas_warp.py:71"
 K2B_REPLACES = "owlexabrick_tpu/render/pallas_warp.py:120"
-# K2 against its plain version: max abs over every output value
+K3_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:178"
+K4_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:46"
+# K2, K3 and K4 against their plain versions: max abs over every output
+# value
 TOL_K2 = 1e-5
+TOL_XF = 1e-5
+# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
+# memory bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# float32 operations per sample, counted low so the bound stays a bound:
+# K1 adds 3 per component and level (the y lerp) to ~30 for the quotient,
+# texel coordinate, LUT, opacity and composite; K3 ~30 (classification,
+# opacity, composite), K4 ~25 (no composite); K2a/K2b ~20 per output
+# value (four Catmull-Rom taps and their weights)
+OPS_K1_BASE, OPS_K3, OPS_K4, OPS_K2 = 30, 30, 25, 20
+# the clipbox golden's box (tests/test_golden_images.py:168-180) as
+# fractions of the scene's edge n
+CLIP_LO, CLIP_HI = (0.25, 0.0, 0.0), (1.0, 1.0, 0.8)
 # jax.random jitter of the JAX Renderer's frames 0 and 1 (renderer.py:
 # 453-458); tests/test_torch_host.py pins these to jax.random
 GOLDEN_JITTER = {0: (0.11854469776153564, -0.06521260738372803),
@@ -77,6 +112,20 @@ TOL_PX, FRAC_PX, TOL_ALL = 1e-4, 0.999, 2e-2
 
 def log(*a):
     print(*a, flush=True)
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``ops`` float32 operations, at the published peaks."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def agree(a, b, frac=FRAC_PX):
@@ -234,6 +283,16 @@ def k1_check(name, ci, prep, pt, tables, width, height, timing):
         res["ms"] = time_ms(lambda: sweep_chunk_cuda(*args, **kw), 50)
         res["plain_ms"] = time_ms(lambda: sweep_chunk_reference(*args, **kw),
                                   3, warmup=1)
+        # the samples this chunk's activity tables leave to classify
+        samples = (float((ci["act_f"] > 0).float().mean())
+                   * prep.y_pos.shape[0] * height * width)
+        comps = prep.mids[0].shape[0]
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes(*prep.mids, prep.acts_l, prep.vmin, prep.vmax,
+                   prep.y_pos, ci["sec"], ci["act_f"], ci["act_all_f"], pt,
+                   *[t for t in tables if isinstance(t, torch.Tensor)],
+                   rgb_k, t_k),
+            samples * (3 * comps * len(prep.mids) + OPS_K1_BASE))
     res["k1_launches"] = sweep_chunk_cuda.launches - n0
     log("k1 check:", json.dumps(res))
     if not ok or not np.isfinite(mx):
@@ -332,6 +391,10 @@ def phase_k2(tilted, width, height, device):
             k2b_plain_ms=time_ms(lambda: PW.warp_pass2_reference(
                 v_p, wi0, params, sw, width, height, bi), 10),
         )
+        res["k2a_bound_ms"], res["k2a_bound_by"] = bound(
+            nbytes(img, wj0, v_k), OPS_K2 * v_k.numel())
+        res["k2b_bound_ms"], res["k2b_bound_by"] = bound(
+            nbytes(v_p, wi0, o_k), OPS_K2 * o_k.numel())
         log("k2 check:", json.dumps(res))
         errs = [res[k] for k in ("k2a_max_abs_err", "k2b_max_abs_err",
                                  "two_pass_max_abs_err")]
@@ -397,21 +460,24 @@ def render_row(row, width, height, cfg=None, cache=None):
                                camera_cache=cache)
 
 
-def launch_counts():
+def _launchers():
+    from owlexabrick_tpu_torch.render.classify import (
+        classify_field_cuda, composite_chunk_cuda)
     from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
     from owlexabrick_tpu_torch.render.warp import (
         warp_pass1_cuda, warp_pass2_cuda)
 
-    return dict(K1=sweep_chunk_cuda.launches, K2a=warp_pass1_cuda.launches,
-                K2b=warp_pass2_cuda.launches)
+    return dict(K1=sweep_chunk_cuda, K2a=warp_pass1_cuda,
+                K2b=warp_pass2_cuda, K3=composite_chunk_cuda,
+                K4=classify_field_cuda)
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in _launchers().items()}
 
 
 def reset_launch_counts():
-    from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
-    from owlexabrick_tpu_torch.render.warp import (
-        warp_pass1_cuda, warp_pass2_cuda)
-
-    for fn in (sweep_chunk_cuda, warp_pass1_cuda, warp_pass2_cuda):
+    for fn in _launchers().values():
         fn.launches = 0
 
 
@@ -521,11 +587,282 @@ def phase_plain(rows, frames, width, height):
             raise SystemExit(f"{name}: kernel frame disagrees with plain")
 
 
-def phase_profile(setups, width, height):
-    """With ``--profile``: trace one uncached and one cached frame per
-    row with torch.profiler; print the device time by kernel, the
+def lane_setups(setups, tilted, device):
+    """The einsum lane's rows at 1920x1080 on the bench's scenes and
+    configs: the clipbox golden's box scaled to n (aligned, through
+    shear-warp, and on blobs256), DVR gradient shading, and two channels
+    under the box (the multichannel golden's recipe: scal and
+    1.05 vmax - scal over [0, 1.05 vmax] and [0, 4 vmax])."""
+    import dataclasses
+
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.slabs import level_grids_from_cells
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    def row(setup, n, box=False, grad=False, sw=None):
+        grids, cam, fs, cfg, meta = setup[:5]
+        r = dict(grids=grids, cam=cam, fs=fs, meta=meta, sw=sw,
+                 cfg=dataclasses.replace(cfg, gradient_shading_dvr=grad))
+        if box:
+            r["box"] = ([n * f for f in CLIP_LO], [n * f for f in CLIP_HI])
+        return r
+
+    head, b256 = setups["headline"], setups["blobs256"]
+    ht = tilted["headline_tilted"]
+    rows = dict(headline_clip=row(head, 64, box=True),
+                headline_tilted_clip=row(ht, 64, box=True, sw=ht[5]),
+                blobs256_clip=row(b256, 256, box=True),
+                headline_gradient=row(head, 64, grad=True),
+                blobs256_gradient=row(b256, 256, grad=True))
+    lower, level, scal = volume_to_cells(synthetic_volume(64), 0.004, 3)
+    vmax = float(scal.max())
+    grids2 = level_grids_from_cells(
+        lower, level, np.stack([scal, 1.05 * vmax - scal]), axis=2,
+        device=device)
+    fs2 = make_frame_state(head[1], 2, [[0.0, 1.05 * vmax], [0.0, 4 * vmax]],
+                           dt=1.0, opacity_scale=0.5)
+    rows["headline_2ch_clip"] = row(
+        (grids2, head[1], fs2, dataclasses.replace(head[3], num_channels=2),
+         head[4]), 64, box=True)
+    return rows
+
+
+def render_lane(row, width, height, plain=False):
+    """One frame of an einsum-lane row: the clip box's interval from
+    ``renderer.clip_interval`` (for the lattice on a shear-warp row),
+    ``render_slabs_camera``, and on a shear-warp row the warp.  ``plain``
+    runs the plain versions of every kernel."""
+    import dataclasses
+
+    from owlexabrick_tpu_torch.render.renderer import clip_interval
+    from owlexabrick_tpu_torch.render.shearwarp import warp_image
+    from owlexabrick_tpu_torch.render.slabs import render_slabs_camera
+
+    grids, cam, sw = row["grids"], row["cam"], row["sw"]
+    cfg = dataclasses.replace(row["cfg"], plain_sweep=plain)
+    cam_s, w, h, lattice = ((sw.camera, sw.width, sw.height, sw.lattice())
+                            if sw is not None else (cam, width, height, None))
+    interval = {}
+    if "box" in row:
+        t0, t1 = clip_interval(grids.axis, cam_s, lattice, w, h,
+                               np.eye(3, 4, dtype=np.float32), cam.pos,
+                               *row["box"], device=grids.device)
+        interval = dict(t_start=t0, t_stop=t1)
+    rgba = render_slabs_camera(grids, row["fs"], cfg, cam_s, w, h,
+                               lattice=lattice, **interval)
+    if sw is None:
+        return rgba
+    return warp_image(rgba, sw, width, height, plain=plain)
+
+
+def xf_check(name, sw, swv, sec, live, lut, dom, dz):
+    """K3 and K4 against their plain versions on one chunk's fields, with
+    times from CUDA events and the bounds of this chunk's work."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    args4 = (sw, swv, sec, lut, dom, dz)
+    args3 = (sw, swv, sec, live, lut, dom, dz)
+    k4 = PC.classify_field_cuda(*args4)
+    p4 = PC.classify_field_reference(*args4)
+    k3 = PC.composite_chunk_cuda(*args3)
+    p3 = PC.composite_chunk_reference(*args3)
+    torch.cuda.synchronize()
+    e4 = max(float((a - b).abs().max()) for a, b in zip(k4, p4))
+    e3 = max(float((a - b).abs().max()) for a, b in zip(k3, p3))
+    finite = all(bool(torch.isfinite(t).all()) for t in (*k4, *k3))
+    s_, h, w = sw.shape
+    n_live = int(live.sum())
+    res = dict(name=name, shape=[s_, h, w], live_slabs=n_live,
+               valid_share=float((sw > 1e-20).float().mean()),
+               k3_max_abs_err=e3, k4_max_abs_err=e4,
+               k3_trans_mean=float(k3[1].mean()),
+               k4_alpha_mean=float(k4[3].mean()))
+    res["k3_ms"] = time_ms(lambda: PC.composite_chunk_cuda(*args3), 50)
+    res["k3_plain_ms"] = time_ms(
+        lambda: PC.composite_chunk_reference(*args3), 3, warmup=1)
+    res["k4_ms"] = time_ms(lambda: PC.classify_field_cuda(*args4), 50)
+    res["k4_plain_ms"] = time_ms(
+        lambda: PC.classify_field_reference(*args4), 3, warmup=1)
+    # K3 skips a dead slab's reads; K4 reads and writes every slab
+    res["k3_bound_ms"], res["k3_bound_by"] = bound(
+        2 * 4 * n_live * h * w + nbytes(sec, live, lut, *k3),
+        OPS_K3 * n_live * h * w)
+    res["k4_bound_ms"], res["k4_bound_by"] = bound(
+        nbytes(sw, swv, sec, lut, *k4), OPS_K4 * sw.numel())
+    log("xf check:", json.dumps(res))
+    if not finite or not (e3 <= TOL_XF and e4 <= TOL_XF):
+        raise SystemExit(f"K3/K4 disagree with their plain versions on "
+                         f"{name}: {e3}, {e4} (finite={finite})")
+    return res
+
+
+def capture_chunk(row, width, height):
+    """The fields the einsum lane hands K3 in one frame of ``row`` (sw
+    with the clip masks applied, swv, sec, live, LUT, domain, dz), cloned,
+    of the chunk with the most valid samples."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import slabs
+
+    seen = []
+    run = slabs.composite_chunk
+
+    def spy(*args, **kw):
+        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args))
+        return run(*args, **kw)
+
+    slabs.composite_chunk = spy
+    try:
+        render_lane(row, width, height)
+    finally:
+        slabs.composite_chunk = run
+    if not seen:
+        raise SystemExit("the headline_clip row launched K3 no time")
+    return max(seen, key=lambda a: int((a[0] > 1e-20).sum()))
+
+
+def phase_xf(lanes, width, height, device):
+    """K3 and K4 against their plain versions at the lane's 1080p shapes:
+    seeded fields at S = 12 and S = 24 (invalid samples, values beyond
+    the TF domain, a dead slab) with the headline's sec, LUT and dz, and
+    a real chunk of the headline_clip row."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import slabs
+
+    grids, cam, fs, cfg = (lanes["headline_clip"][k]
+                           for k in ("grids", "cam", "fs", "cfg"))
+    _, dir00, du, dv = slabs.permute_camera(cam, grids.axis)
+    _, _, sec = slabs.ray_components(dir00, du, dv, width, height, device)
+    lut = torch.from_numpy(slabs.scaled_luts(fs, 1)[0]).to(device)
+    dom = np.asarray(fs.xf_domain[0], np.float32)
+    dz = slabs.slab_spacing(grids, cfg.nslabs)
+    results = []
+    for s_ in (12, 24):
+        g = torch.Generator(device=device).manual_seed(100 + s_)
+
+        def rand():
+            return torch.rand((s_, height, width), generator=g,
+                              device=device)
+
+        sw = torch.where(rand() < 0.15, 0.0, 2.0 * rand())
+        value = float(dom[1]) * (1.2 * rand() - 0.1)
+        swv = value * torch.where(sw > 0, sw, 1.0)
+        live = torch.ones(s_, dtype=torch.bool, device=device)
+        live[1] = False
+        results.append(xf_check(f"seeded_S{s_}", sw, swv, sec, live, lut,
+                                dom, dz))
+        del sw, swv, value
+    real = capture_chunk(lanes["headline_clip"], width, height)
+    results.append(xf_check("headline_clip_real_chunk", *real))
+    return results
+
+
+def phase_lane_rows(rows, width, height, n_timed=3):
+    """Each einsum-lane row at full size (uncached: the lane has no
+    product cache); returns the kernel frames for the plain comparison."""
+    import torch
+
+    frames = {}
+    for name, row in rows.items():
+        cfg = row["cfg"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = launch_counts()
+
+        def frame():
+            t0 = time.perf_counter()
+            out = render_lane(row, width, height)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        first, first_ms = frame()
+        times = [first_ms] + [frame()[1] for _ in range(n_timed)]
+        rec = dict(
+            row=name, frames_ms=[round(t, 3) for t in times],
+            peak_mem_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
+            nslabs=cfg.nslabs, chunk=cfg.chunk, channels=cfg.num_channels,
+            gradient_shading_dvr=cfg.gradient_shading_dvr,
+            clip_box=row.get("box"), cells=row["meta"]["n_cells"])
+        if row["sw"] is not None:
+            rec["lattice"] = [row["sw"].width, row["sw"].height]
+        rec.update({f"{k}_launches": v - n0[k]
+                    for k, v in launch_counts().items()})
+        rec["alpha_mean"] = float(first[:, 3].mean())
+        log("einsum lane:", json.dumps(rec))
+        if not bool(torch.isfinite(first).all()) or rec["alpha_mean"] <= 1e-3:
+            raise SystemExit(f"{name}: frame not finite or blank")
+        frames[name] = first
+    return frames
+
+
+def phase_lane_plain(rows, frames, width, height):
+    """Each einsum-lane row's kernel frame against its plain frame (plain
+    K3/K4 and, on the shear-warp row, plain K1's twin and warp)."""
+    for name, row in rows.items():
+        t0 = time.perf_counter()
+        plain = render_lane(row, width, height, plain=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        ok, mx, share = agree(frames[name], plain)
+        log(f"einsum lane {name}: kernel vs plain frame max_abs={mx} "
+            f"share_within_1e-4={share:.6f} plain_frame_ms={ms:.1f}")
+        if not ok:
+            raise SystemExit(f"{name}: kernel frame disagrees with plain")
+
+
+def phase_renderer_lane(setups, tilted, n, width, height, device,
+                        n_frames=2):
+    """Progressive Renderer frames on the einsum lane: the clip box
+    (aligned and through shear-warp) and DVR gradient shading, each
+    finite and not blank."""
+    import torch
+
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    lower, level, scal = volume_to_cells(synthetic_volume(n), 0.004, 3)
+    box = ([n * f for f in CLIP_LO], [n * f for f in CLIP_HI])
+    for name, fs, grad, tilt in (
+            ("renderer_clip", setups["headline"][2], False, False),
+            ("renderer_tilted_clip", tilted["headline_tilted"][2], False,
+             True),
+            ("renderer_gradient", setups["headline"][2], True, False)):
+        r = Renderer((lower, level, scal[None]), width, height,
+                     cfg=RenderConfig(num_channels=1,
+                                      gradient_shading_dvr=grad),
+                     frame_state=fs, device=device)
+        if not grad:
+            r.set_clip_box(True, *box)
+        r.enable_fast_path()
+        if (r._fast[2] == "shearwarp") != tilt:
+            raise SystemExit(f"{name}: Renderer took {r._fast[2]!r}")
+        times = []
+        for _ in range(n_frames):
+            t0 = time.perf_counter()
+            words = r.render()
+            torch.cuda.synchronize()
+            times.append(round((time.perf_counter() - t0) * 1e3, 3))
+        img = r.image_uint8(words)
+        lit = float((img[..., :3] > 16).any(-1).mean())
+        finite = bool(torch.isfinite(r.accum).all())
+        log("renderer:", json.dumps(dict(row=name, frames_ms=times,
+                                         lit_pixel_share=lit,
+                                         accum_finite=finite)))
+        if not finite or lit < 0.02:
+            raise SystemExit(f"{name}: Renderer frames not finite or blank")
+
+
+def phase_profile(setups, width, height, render=render_row,
+                  modes=("uncached", "cached"), traces=True):
+    """With ``--profile``: trace one frame per row and mode (uncached,
+    cached) with torch.profiler; print the device time by kernel, the
     device's busy share of the unprofiled frame time, and write the
-    Chrome traces under chiprun_out/."""
+    Chrome traces to ``out_dir`` below (if ``traces``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -534,20 +871,22 @@ def phase_profile(setups, width, height):
     out_dir.mkdir(exist_ok=True)
     for name, row in setups.items():
         cache = {}
-        for mode in ("uncached", "cached"):
+        for mode in modes:
             c = cache if mode == "cached" else None
             for _ in range(2):  # warm up (and fill the cache)
-                render_row(row, width, height, cache=c)
+                render(row, width, height, cache=c)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            render_row(row, width, height, cache=c)
+            render(row, width, height, cache=c)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                render_row(row, width, height, cache=c)
+                render(row, width, height, cache=c)
                 torch.cuda.synchronize()
-            prof.export_chrome_trace(str(out_dir / f"trace_{name}_{mode}.json"))
+            if traces:
+                prof.export_chrome_trace(
+                    str(out_dir / f"trace_{name}_{mode}.json"))
             rows = []
             for e in prof.key_averages():
                 # kernels only: an aten op's entry repeats the device
@@ -626,45 +965,62 @@ def main() -> int:
     phase_renderer(tilted["headline_tilted"], 64, width, height, dev)
     tilt = launch_counts()
     log("launches on the tilted path:", json.dumps(tilt))
-    if min(tilt.values()) <= 0:
+    if min(tilt[k] for k in ("K1", "K2a", "K2b")) <= 0:
         raise SystemExit(f"the tilted path left a kernel unlaunched: {tilt}")
 
     rows = {**setups, **tilted}
     phase_plain(rows, frames, width, height)
+
+    lanes = lane_setups(setups, tilted, dev)
+    xf = phase_xf(lanes, width, height, dev)
+    reset_launch_counts()
+    lane_frames = phase_lane_rows(lanes, width, height)
+    phase_renderer_lane(setups, tilted, 64, width, height, dev)
+    einsum = launch_counts()
+    log("launches on the einsum path:", json.dumps(einsum))
+    if min(einsum[k] for k in ("K3", "K4", "K2a", "K2b")) <= 0:
+        raise SystemExit(f"the einsum path left a kernel unlaunched: "
+                         f"{einsum}")
+    phase_lane_plain(lanes, lane_frames, width, height)
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
+        # no Chrome traces: a 1080p einsum-lane frame's is tens of MB
+        phase_profile(lanes, width, height, modes=("uncached",),
+                      render=lambda row, w, h, cache: render_lane(row, w, h),
+                      traces=False)
 
     timed = next(r for r in k1 if r["name"] == "headline_seeded_knots")
     k2_rows = next(r for r in k2 if r["channels"] == 4)
+    xf_real = next(r for r in xf if r["name"] == "headline_clip_real_chunk")
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
-    log(json.dumps({"kernels": [{
-        "name": "K1 slab-sweep megakernel",
-        "route": "cuda",
-        "source": "owlexabrick_tpu_torch/csrc/sweep.cu",
-        "replaces": K1_REPLACES,
-        "launches": aligned["K1"] + tilt["K1"],
-        "max_abs_err": max(r["max_abs_err"] for r in k1),
-        "ms": timed["ms"],
-        "plain_ms": timed["plain_ms"],
-    }, {
-        "name": "K2a warp pass 1 (vertical Catmull-Rom)",
-        "route": "cuda",
-        "source": src_warp,
-        "replaces": K2A_REPLACES,
-        "launches": tilt["K2a"],
-        "max_abs_err": max(r["k2a_max_abs_err"] for r in k2),
-        "ms": k2_rows["k2a_ms"],
-        "plain_ms": k2_rows["k2a_plain_ms"],
-    }, {
-        "name": "K2b warp pass 2 (horizontal Catmull-Rom)",
-        "route": "cuda",
-        "source": src_warp,
-        "replaces": K2B_REPLACES,
-        "launches": tilt["K2b"],
-        "max_abs_err": max(r["k2b_max_abs_err"] for r in k2),
-        "ms": k2_rows["k2b_ms"],
-        "plain_ms": k2_rows["k2b_plain_ms"],
-    }]}))
+    src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
+    launches = {k: aligned[k] + tilt[k] + einsum[k] for k in aligned}
+
+    def entry(name, source, replaces, key, err, res, prefix=""):
+        # no single PyTorch call computes any of these functions
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches[key],
+                    max_abs_err=err, ms=res[prefix + "ms"],
+                    plain_ms=res[prefix + "plain_ms"],
+                    bound_ms=res[prefix + "bound_ms"],
+                    bound_by=res[prefix + "bound_by"], library_ms=None)
+
+    log(json.dumps({"kernels": [
+        entry("K1 slab-sweep megakernel",
+              "owlexabrick_tpu_torch/csrc/sweep.cu", K1_REPLACES, "K1",
+              max(r["max_abs_err"] for r in k1), timed),
+        entry("K2a warp pass 1 (vertical Catmull-Rom)", src_warp,
+              K2A_REPLACES, "K2a", max(r["k2a_max_abs_err"] for r in k2),
+              k2_rows, "k2a_"),
+        entry("K2b warp pass 2 (horizontal Catmull-Rom)", src_warp,
+              K2B_REPLACES, "K2b", max(r["k2b_max_abs_err"] for r in k2),
+              k2_rows, "k2b_"),
+        entry("K3 classify + composite a chunk (one channel)", src_xf,
+              K3_REPLACES, "K3", max(r["k3_max_abs_err"] for r in xf),
+              xf_real, "k3_"),
+        entry("K4 classify a field per slab", src_xf, K4_REPLACES, "K4",
+              max(r["k4_max_abs_err"] for r in xf), xf_real, "k4_"),
+    ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

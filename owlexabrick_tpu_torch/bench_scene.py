@@ -50,10 +50,11 @@ def exajet_pattern_volume(n: int = 256) -> np.ndarray:
 
 
 def slab_scene_grids(kind: str, n: int, threshold: float = 0.004,
-                     max_level: int = 3, device="cpu"):
+                     max_level: int = 3, device="cuda"):
     """Level grids (sweep axis z) of the ``kind`` ("blobs" or "exajet")
-    bench scene at ``n``^3.  Returns (grids, meta) with n_cells,
-    build_s and value_max."""
+    bench scene at ``n``^3, on ``device`` (the card unless the caller
+    asks for the CPU).  Returns (grids, meta) with n_cells, build_s and
+    value_max."""
     t0 = time.time()
     vol = exajet_pattern_volume(n) if kind == "exajet" else synthetic_volume(n)
     lower, level, scal = volume_to_cells(vol, threshold, max_level)

@@ -18,9 +18,13 @@ import shutil
 import subprocess
 import tempfile
 
-# must match csrc/sweep.cu and csrc/warp.cu
+import torch
+
+# must match csrc/sweep.cu, csrc/warp.cu and csrc/xf.cu
 MAX_LEVELS = 8
 MAX_CHANNELS = 4
+MAX_TEXELS = 128
+MAX_SLABS = 256
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -124,6 +128,13 @@ def load():
         lib.owx_warp_pass2.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                        vp]
         lib.owx_warp_pass2.restype = ci
+        cf = ctypes.c_float
+        lib.owx_classify_field.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                           ci, cf, cf, cf, vp]
+        lib.owx_classify_field.restype = ci
+        lib.owx_composite_chunk.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                            ci, ci, cf, cf, cf, vp]
+        lib.owx_composite_chunk.restype = ci
         lib.owx_error_string.argtypes = [ci]
         lib.owx_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -132,3 +143,28 @@ def load():
 
 def error_string(err: int) -> str:
     return load().owx_error_string(int(err)).decode()
+
+
+def check_tensor(name, t, dev, shape, dtype=torch.float32):
+    """Raise ValueError unless ``t`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``dev``: what a launcher may hand a kernel."""
+    if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need contiguous {dtype} on {dev}, got {t.dtype} on "
+            f"{t.device} contiguous={t.is_contiguous()}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+
+
+def stream_arg(dev) -> ctypes.c_void_p:
+    """The current CUDA stream of ``dev``, as a launch argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def launch(entry: str, name: str, *args):
+    """Call the library's ``entry`` with ``args``; raise RuntimeError
+    naming kernel ``name`` if it returns an error."""
+    err = getattr(load(), entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {error_string(err)} "
+                           f"({err})")

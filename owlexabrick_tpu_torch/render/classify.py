@@ -1,0 +1,207 @@
+"""Transfer-function classification of reconstructed slab fields (the
+port of ``owlexabrick_tpu/render/pallas_xf.py``): the einsum lane's two
+kernels.
+
+* K3, ``composite_chunk``: value = swv/sw, classification, opacity
+  correction, the ``live`` gate and the front-to-back composite over a
+  chunk's S slabs, into premultiplied chunk rgb (3, H, W) and
+  transmittance (H, W).  The one-channel lane without shading.
+* K4, ``classify_field``: the same classification and opacity per
+  (slab, pixel), no composite: r, g, b, a, each (S, H, W), a = 0 where
+  the sample is invalid.  The multi-channel and gradient-shading lanes.
+
+Each has a plain-torch version (``*_reference``), a launcher of the
+hand-written Hopper kernel in ``csrc/xf.cu`` (``*_cuda``, counting its
+launches in ``.launches``) and a dispatcher: CPU tensors take the plain
+version, CUDA tensors launch the kernel or raise, and ``plain=True``
+(``SlabConfig.plain_sweep``) is the one explicit way to run the plain
+version on the card.
+
+The TPU kernels walked the knots between a tile's least and greatest
+texel coordinate; for one pixel that walk telescopes to a lerp of the
+LUT at k = min(floor(u), N-2), which both versions here evaluate (they
+differ from the walk only in rounding).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+
+def _domain(domain):
+    """(lo, hi) of a channel's TF domain (2,) as float32 host scalars."""
+    lo, hi = np.asarray(domain, np.float32).reshape(2)
+    return np.float32(lo), np.float32(hi)
+
+
+def texel_coord(value: torch.Tensor, lo, hi, n: int) -> torch.Tensor:
+    """value -> clamped texel coordinate in [0, n-1] (``xf_texel_coord``,
+    exabrick.cu:136-150), in the kernels' float32 operation order."""
+    dev = value.device
+    lo_t, hi_t, nm1 = (torch.tensor(np.float32(v), device=dev)
+                       for v in (lo, hi, n - 1))
+    s = nm1 * (value - lo_t) / ((hi_t - lo_t) + 1e-20)
+    # divide by a device tensor: torch turns a CUDA tensor's division by
+    # a host scalar into a multiply by its reciprocal, which rounds
+    # otherwise than the kernels' division
+    s = torch.clamp(s + 0.5, 0.0, n - 1.0) / nm1
+    return torch.clamp(s * float(n) - 0.5, 0.0, n - 1.0)
+
+
+def _classify(value: torch.Tensor, lut: torch.Tensor, lo, hi):
+    """Per-sample rgba: the LUT lerped at the texel coordinate of
+    ``value``, one component at a time (lut[k] + f * (lut[k+1] - lut[k]),
+    k = min(floor(u), N-2))."""
+    n = int(lut.shape[0])
+    u = texel_coord(value, lo, hi, n)
+    k = torch.clamp(torch.floor(u).to(torch.int64), max=n - 2)
+    f = u - k.to(torch.float32)
+    out = []
+    for c in range(4):
+        col = lut[:, c]
+        out.append(col[k] + f * (col[1:] - col[:-1])[k])
+    return out
+
+
+def _opacity(a: torch.Tensor, expo: torch.Tensor) -> torch.Tensor:
+    """Opacity correction for the slab's path length: 1-(1-a)^(dz*sec)
+    (exabrick.cu:1011), the base clamped at 0 first."""
+    return 1.0 - torch.pow(torch.clamp(1.0 - a, min=0.0), expo)
+
+
+def classify_field_reference(sw, swv, sec, lut, domain, dz):
+    """Plain-torch K4: the same arithmetic as ``csrc/xf.cu``'s
+    classify_field_kernel.  sw, swv: (S, H, W); sec: (H, W); lut: (N, 4)
+    alpha-prescaled; domain: (2,); dz: the slab thickness.  Returns
+    (r, g, b, a), each (S, H, W); a is opacity-corrected and 0 where the
+    sample is invalid (sw <= 1e-20).  Every sample is classified, the
+    invalid ones at value = swv, so no inf or NaN enters."""
+    lo, hi = _domain(domain)
+    ok = sw > 1e-20
+    value = swv / torch.where(ok, sw, 1.0)
+    r, g, b, a = _classify(value, lut, lo, hi)
+    expo = torch.tensor(np.float32(dz), device=sw.device) * sec
+    a = torch.where(ok, _opacity(a, expo), 0.0)
+    return r, g, b, a
+
+
+def composite_chunk_reference(sw, swv, sec, live, lut, domain, dz):
+    """Plain-torch K3: the same arithmetic as ``csrc/xf.cu``'s
+    composite_chunk_kernel, one slab at a time.  sw, swv: (S, H, W);
+    sec: (H, W); live: (S,) bool or 0/1; lut, domain, dz as in
+    ``classify_field_reference``.  Returns (rgb (3, H, W) premultiplied
+    chunk color, trans (H, W) chunk transmittance); merge into the frame
+    with color += (1-alpha) rgb, alpha = 1 - (1-alpha) trans."""
+    lo, hi = _domain(domain)
+    dev = sw.device
+    expo = torch.tensor(np.float32(dz), device=dev) * sec
+    live_h = live.detach().cpu().to(torch.float32)
+    r_acc = torch.zeros_like(sec)
+    g_acc = torch.zeros_like(sec)
+    b_acc = torch.zeros_like(sec)
+    t_run = torch.ones_like(sec)
+    for s in range(sw.shape[0]):
+        # a dead slab adds exactly nothing (a = 0), as the kernel skips it
+        if not live_h[s] > 0.0:
+            continue
+        valid = sw[s] > 1e-20
+        value = swv[s] / torch.where(valid, sw[s], 1.0)
+        r, g, b, a = _classify(value, lut, lo, hi)
+        a = torch.where(valid, _opacity(a, expo), 0.0)
+        contrib = t_run * a
+        r_acc = r_acc + contrib * r
+        g_acc = g_acc + contrib * g
+        b_acc = b_acc + contrib * b
+        t_run = t_run * (1.0 - a)
+    return torch.stack([r_acc, g_acc, b_acc]), t_run
+
+
+def _common(fn, sw, swv, sec, lut):
+    """Checks shared by both launchers; returns (S, H, W, N)."""
+    from .. import kernels
+
+    dev = sw.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
+    if sw.dim() != 3:
+        raise ValueError(f"sw: need (S, H, W), got {tuple(sw.shape)}")
+    s_, h, w = sw.shape
+    n = int(lut.shape[0])
+    if not 2 <= n <= kernels.MAX_TEXELS:
+        raise ValueError(f"{n} LUT texels; {fn} takes 2..{kernels.MAX_TEXELS}")
+    kernels.check_tensor("sw", sw, dev, (s_, h, w))
+    kernels.check_tensor("swv", swv, dev, (s_, h, w))
+    kernels.check_tensor("sec", sec, dev, (h, w))
+    kernels.check_tensor("lut", lut, dev, (n, 4))
+    return s_, h, w, n
+
+
+def classify_field_cuda(sw, swv, sec, lut, domain, dz):
+    """Launch K4 (``csrc/xf.cu``) on the current stream.  Same arguments
+    and result as ``classify_field_reference``.  Raises on any input the
+    kernel does not take; never falls back."""
+    from .. import kernels
+
+    s_, h, w, n = _common("classify_field_cuda", sw, swv, sec, lut)
+    if s_ > 65535:
+        raise ValueError(f"{s_} slabs; K4 takes at most 65535")
+    lo, hi = _domain(domain)
+    out = torch.empty((4, s_, h, w), dtype=torch.float32, device=sw.device)
+    vp, cf = ctypes.c_void_p, ctypes.c_float
+    kernels.launch("owx_classify_field", "K4", vp(sw.data_ptr()),
+                   vp(swv.data_ptr()), vp(sec.data_ptr()),
+                   vp(lut.data_ptr()), vp(out.data_ptr()), s_, h, w, n,
+                   cf(lo), cf(hi), cf(np.float32(dz)),
+                   kernels.stream_arg(sw.device))
+    classify_field_cuda.launches += 1
+    return out[0], out[1], out[2], out[3]
+
+
+classify_field_cuda.launches = 0
+
+
+def composite_chunk_cuda(sw, swv, sec, live, lut, domain, dz):
+    """Launch K3 (``csrc/xf.cu``) on the current stream.  Same arguments
+    and result as ``composite_chunk_reference``.  Raises on any input the
+    kernel does not take; never falls back."""
+    from .. import kernels
+
+    s_, h, w, n = _common("composite_chunk_cuda", sw, swv, sec, lut)
+    if not 1 <= s_ <= kernels.MAX_SLABS:
+        raise ValueError(f"{s_} slabs; K3 takes 1..{kernels.MAX_SLABS}")
+    live_f = live.to(device=sw.device, dtype=torch.float32).contiguous()
+    kernels.check_tensor("live", live_f, sw.device, (s_,))
+    lo, hi = _domain(domain)
+    out = torch.empty((4, h, w), dtype=torch.float32, device=sw.device)
+    vp, cf = ctypes.c_void_p, ctypes.c_float
+    kernels.launch("owx_composite_chunk", "K3", vp(sw.data_ptr()),
+                   vp(swv.data_ptr()), vp(sec.data_ptr()),
+                   vp(live_f.data_ptr()), vp(lut.data_ptr()),
+                   vp(out.data_ptr()), s_, h, w, n, cf(lo), cf(hi),
+                   cf(np.float32(dz)), kernels.stream_arg(sw.device))
+    composite_chunk_cuda.launches += 1
+    return out[:3], out[3]
+
+
+composite_chunk_cuda.launches = 0
+
+
+def classify_field(sw, swv, sec, lut, domain, dz, plain: bool = False):
+    """K4 for CUDA tensors, the plain version for CPU tensors (or
+    anywhere when ``plain``, the explicit choice a kernel-vs-plain
+    comparison makes)."""
+    fn = (classify_field_reference if plain or sw.device.type == "cpu"
+          else classify_field_cuda)
+    return fn(sw, swv, sec, lut, domain, dz)
+
+
+def composite_chunk(sw, swv, sec, live, lut, domain, dz,
+                    plain: bool = False):
+    """K3 for CUDA tensors, the plain version for CPU tensors (or
+    anywhere when ``plain``)."""
+    fn = (composite_chunk_reference if plain or sw.device.type == "cpu"
+          else composite_chunk_cuda)
+    return fn(sw, swv, sec, live, lut, domain, dz)

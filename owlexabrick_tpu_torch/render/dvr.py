@@ -1,10 +1,25 @@
 """Frame finishing (the port of ``owlexabrick_tpu/render/dvr.py:462-507``):
 sRGB conversion, background composite, progressive accumulation
-(exabrick.cu:1709-1719) and RGBA8 packing (exabrick.cu:62-76)."""
+(exabrick.cu:1709-1719) and RGBA8 packing (exabrick.cu:62-76); and the
+ray-box slab test (``dvr.py:127-136``) the clip box uses."""
 
 from __future__ import annotations
 
 import torch
+
+
+def ray_box(o, d, lo, hi, tmin, tmax):
+    """Slab test of rays o + t d (d (P, 3); o (P, 3), or (3,) for one
+    eye) against the box [lo, hi] (3,), clipped to [tmin, tmax] (P,);
+    returns (hit, t0, t1), float32 like the reference's."""
+    inv = 1.0 / d
+    t_lo = (lo - o) * inv
+    t_hi = (hi - o) * inv
+    t_nr = torch.minimum(t_lo, t_hi)
+    t_fr = torch.maximum(t_lo, t_hi)
+    t0 = torch.maximum(tmin, t_nr.amax(dim=-1))
+    t1 = torch.minimum(tmax, t_fr.amin(dim=-1))
+    return t0 < t1, t0, t1
 
 
 def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:

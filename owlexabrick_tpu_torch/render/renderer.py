@@ -4,11 +4,13 @@ the frame state and the accumulation buffer, and renders progressive
 frames through ``render_slabs_camera``: an axis-aligned camera directly,
 any other camera through shear-warp (an axis-aligned lattice camera plus
 the two-pass warp), and a frustum no axis can factorize through the
-``reorient_grids`` preview.
+``reorient_grids`` preview.  The clip box (``set_clip_box``) and DVR
+gradient shading (``RenderConfig.gradient_shading_dvr``) take the
+sweep's einsum lane; the clip box becomes a per-pixel sweep interval
+(``clip_interval``).
 
 Not ported yet (each raises NotImplementedError): surfaces, iso
-surfaces, contour planes, the clip box, AO, gradient shading, and the
-exact wavefront path.
+surfaces, contour planes, AO, and the exact wavefront path.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .dvr import accumulate, composite_background, pack_rgba8
+from .dvr import accumulate, composite_background, pack_rgba8, ray_box
 from .frame import FrameState, make_frame_state, with_camera
 from .shearwarp import inter_dims, setup_shearwarp, warp_image
 from .slabs import (
@@ -29,7 +31,9 @@ from .slabs import (
     camera_to_voxel,
     check_separable,
     level_grids_from_cells,
+    permute_camera,
     principal_axis,
+    render_device,
     render_slabs_camera,
     reorient_grids,
 )
@@ -61,6 +65,66 @@ def default_jitter(frame_id: int) -> Tuple[float, float]:
     return float(u[0]) - 0.5, float(u[1]) - 0.5
 
 
+def _f32s(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def sweep_rays_world(axis: int, cam: Camera, lattice, width: int,
+                     height: int, voxel_from_world, device="cuda"):
+    """Per-pixel world ray directions matching the sweep's
+    parameterization (the JAX Renderer's ``_sweep_rays_world``), built on
+    ``device`` in the reference's float32 operations.  The sweep advances
+    p = o + s r along the voxel-frame ray r of ``cam`` (or of the
+    shear-warp ``lattice`` ((W,), (H,)) with ``cam``'s sweep component); a
+    world hit at t along the unit direction is the sweep parameter
+    s = t / |r_w|.  Returns (d_unit (P, 3), rnorm (P,)) float32."""
+    dev = render_device(device)
+    if lattice is not None:
+        _, dir00, _, _ = permute_camera(cam, axis)
+        # grid-frame components (sweep, y, x) back to voxel (x, y, z)
+        perm = (axis, *[a for a in (2, 1, 0) if a != axis])
+        comps = (_f32s(dir00[0], dev).expand(height, width),
+                 _f32s(lattice[1], dev)[:, None].expand(height, width),
+                 _f32s(lattice[0], dev)[None, :].expand(height, width))
+        rv = torch.stack([comps[perm.index(a)] for a in range(3)], -1)
+    else:
+        i = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+        j = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+        rv = (_f32s(cam.dir00, dev)[None, None]
+              + i[None, :, None] * _f32s(cam.dir_du, dev)[None, None]
+              + j[:, None, None] * _f32s(cam.dir_dv, dev)[None, None])
+    r = np.asarray(voxel_from_world)[:, :3]
+    dw = rv.reshape(-1, 3) @ _f32s(np.linalg.inv(r).T, dev)
+    sq = dw * dw
+    # the square root in double, rounded once: correctly rounded like
+    # numpy's float32 sqrt, which torch's float32 sqrt on the CPU is not
+    rnorm = torch.sqrt((sq[:, 0] + sq[:, 1] + sq[:, 2]).double()).float()
+    return dw / rnorm[:, None], rnorm
+
+
+def clip_interval(axis: int, cam: Camera, lattice, width: int, height: int,
+                  voxel_from_world, eye_world, clip_lo, clip_hi,
+                  device="cuda"):
+    """The clip box's sweep interval per pixel of a render (the JAX
+    Renderer's clip, renderer.py:801-817; clipRay, exabrick.cu:
+    1258-1264): the world rays of ``sweep_rays_world`` from
+    ``eye_world`` against the world-space box [clip_lo, clip_hi] over
+    [0, 2e10], as sweep parameters.  Returns (t_start, t_stop), each (P,)
+    float32 on ``device``: inf and 0 where a ray misses the box."""
+    dev = render_device(device)
+    d_unit, rnorm = sweep_rays_world(axis, cam, lattice, width, height,
+                                     voxel_from_world, dev)
+    p = rnorm.shape[0]
+    hit, c0, c1 = ray_box(_f32s(eye_world, dev), d_unit,
+                          _f32s(clip_lo, dev), _f32s(clip_hi, dev),
+                          torch.zeros(p, dtype=torch.float32, device=dev),
+                          torch.full((p,), 2e10, dtype=torch.float32,
+                                     device=dev))
+    t_start = torch.where(hit, c0, float("inf")) / rnorm
+    t_stop = torch.where(hit, c1, 0.0) / rnorm
+    return t_start, t_stop
+
+
 class Renderer:
     """Progressive renderer of cell data on one device.
 
@@ -71,13 +135,9 @@ class Renderer:
     def __init__(self, cells, width: int = 1024, height: int = 1024,
                  cfg: Optional[RenderConfig] = None,
                  frame_state: Optional[FrameState] = None,
-                 voxel_from_world=None, device="cpu",
+                 voxel_from_world=None, device="cuda",
                  jitter: Optional[Callable[[int], Tuple[float, float]]] = None):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' asked for, but no CUDA card "
-                               "is available")
-        self.device = device
+        self.device = render_device(device)
         lower, level, scalars = cells
         self._lower = np.asarray(lower)
         self._level = np.asarray(level)
@@ -105,6 +165,9 @@ class Renderer:
                 up=[0, 1, 0], fovy_degrees=60.0, width=width,
                 height=height)
             frame_state = make_frame_state(cam, self.cfg.num_channels)
+            frame_state = dataclasses.replace(
+                frame_state, clip_lo=self.world_bounds_lo.copy(),
+                clip_hi=self.world_bounds_hi.copy())
         self.fs = frame_state
         self._grids_cache = {}
         self._fast = None
@@ -135,6 +198,17 @@ class Renderer:
             xf_opacity_scale=np.float32(opacity_scale))
         self.reset_accumulation()
 
+    def set_clip_box(self, enabled: bool, lo=None, hi=None):
+        """Enable or disable the world-space clip box [lo, hi] (each
+        kept when None)."""
+        self.fs = dataclasses.replace(
+            self.fs, clip_enabled=np.bool_(enabled),
+            clip_lo=(np.asarray(lo, np.float32) if lo is not None
+                     else self.fs.clip_lo),
+            clip_hi=(np.asarray(hi, np.float32) if hi is not None
+                     else self.fs.clip_hi))
+        self.reset_accumulation()
+
     # -- fast (slab-sweep) path ------------------------------------------
     def _camera_from_fs(self) -> Camera:
         return Camera(pos=np.asarray(self.fs.cam_pos),
@@ -154,15 +228,10 @@ class Renderer:
         cfg, fs = self.cfg, self.fs
         if cfg.iso_surfaces or bool(np.any(fs.iso_enabled)):
             raise NotImplementedError("iso surfaces are not ported yet")
-        if cfg.gradient_shading_dvr:
-            raise NotImplementedError("DVR gradient shading is not ported "
-                                      "yet")
         if cfg.ao_samples > 0 or bool(fs.ao_enabled):
             raise NotImplementedError("ambient occlusion is not ported yet")
         if bool(np.any(fs.contour_enabled)):
             raise NotImplementedError("contour planes are not ported yet")
-        if bool(fs.clip_enabled):
-            raise NotImplementedError("the clip box is not ported yet")
 
     def _slab_config(self, grids) -> SlabConfig:
         """Slab spacing = dt * finest cell width over the sweep extent
@@ -171,6 +240,7 @@ class Renderer:
         finest = float(min(1 << l for l in grids.levels))
         nslabs = int(np.ceil(extent / (float(self.fs.dt) * finest)))
         return SlabConfig(num_channels=self.cfg.num_channels, nslabs=nslabs,
+                          gradient_shading_dvr=self.cfg.gradient_shading_dvr,
                           adaptive_stride=self.cfg.adaptive_stride)
 
     def enable_fast_path(self) -> bool:
@@ -279,8 +349,16 @@ class Renderer:
         self._last_pose = pose
         self._last_pose_grids = grids
 
+        t_start = t_stop = None
+        if bool(self.fs.clip_enabled):
+            # the clip box shrinks the volume interval only (clipRay)
+            t_start, t_stop = clip_interval(
+                grids.axis, cam, lattice, rw, rh, self.voxel_from_world,
+                self.fs.cam_pos, self.fs.clip_lo, self.fs.clip_hi,
+                self.device)
         rgba = render_slabs_camera(grids, self.fs, scfg, cam, rw, rh,
-                                   camera_cache=cam_cache, lattice=lattice)
+                                   camera_cache=cam_cache, lattice=lattice,
+                                   t_start=t_start, t_stop=t_stop)
         bg = torch.zeros(3, dtype=torch.float32, device=self.device)
         color = composite_background(rgba, bg)
         if shear is not None:

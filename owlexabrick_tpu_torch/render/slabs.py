@@ -1,7 +1,7 @@
 """Slab-sweep DVR for axis-aligned cameras and shear-warp lattice
-cameras (the port of ``owlexabrick_tpu/render/slabs.py``, megakernel
-lane only), and the ``reorient_grids`` preview for frusta no axis can
-factorize.
+cameras (the port of ``owlexabrick_tpu/render/slabs.py``: the megakernel
+lane and the einsum lane), and the ``reorient_grids`` preview for
+frusta no axis can factorize.
 
 The AMR field is held as dense per-level voxel grids (value + cell mask);
 summing tent-weighted contributions over levels is exactly the exa-brick
@@ -12,6 +12,15 @@ pixel grid is separable.  Per chunk of slabs the camera products are a
 2-tap z lerp and a 2-tap x lerp of every level into per-level "mids"
 (S, ny, W) (plain torch); the sweep kernel (``sweep.run_chunk``, K1 on the
 card) does the y lerp, classification and front-to-back compositing.
+
+The einsum lane serves what the megakernel cannot: the clip box's
+per-pixel interval start ``t_start`` and DVR gradient shading.  Per
+chunk it rebuilds the fields sw, swv (and their gradients) at every
+pixel of every slab, z then x then y, with 2-tap lerps (plain torch, as
+the JAX package left them to XLA), then classifies them with K3 (one
+channel, composited in the kernel) or K4 (per channel, followed by the
+headlight shading, the channel merge and a cumprod composite in torch),
+``render/classify.py``.
 
 Host-side pieces (level-grid construction, knot compression, camera
 separability, y crop, window hints, chunk depth) are numpy, as in the
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core.constants import TERMINATION_THRESHOLD
+from .classify import classify_field, composite_chunk
 from .sweep import (
     combine_activity,
     pack_luts,
@@ -128,8 +138,19 @@ def _perm(axis: int):
     return (axis, *other)
 
 
+def render_device(device) -> torch.device:
+    """``device`` as a torch.device.  Asking for a CUDA device where no
+    card is available raises: nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} asked for, but no CUDA "
+                           "card is available (pass device='cpu')")
+    return device
+
+
 def _finish_grids(levels, vals, masks, origins, v_lo, v_hi, perm, c,
                   axis, device) -> LevelGrids:
+    device = render_device(device)
     # sweep bounds = union of basis-function domains (brick bounds padded
     # by half the coarsest cell width, ExaBricks.h:55-60)
     pad = 0.5 * (1 << max(levels))
@@ -169,7 +190,7 @@ def _level_frame(l_lo, l_hi, cw, perm):
 
 
 def build_level_grids(bricks, scalars, axis: int = 2,
-                      device="cpu") -> LevelGrids:
+                      device="cuda") -> LevelGrids:
     """Scatter bricks into dense per-level grids (host side, then moved
     to ``device``).  ``bricks``: any object with the JAX package's
     ``Bricks`` fields (lower, size, level, begin as numpy arrays); cells
@@ -215,7 +236,7 @@ def build_level_grids(bricks, scalars, axis: int = 2,
 
 
 def level_grids_from_cells(lower, level, scalars, axis: int = 2,
-                           device="cpu") -> LevelGrids:
+                           device="cuda") -> LevelGrids:
     """Level grids straight from cells (the cell-scatter twin of
     ``build_level_grids``): bricks only partition the cells and the basis
     lives on the cells, so no brick builder is needed.  lower: (N, 3)
@@ -602,9 +623,13 @@ class SlabConfig:
     # adaptive z-stride (the reference's per-region dt = global_dt *
     # finestLevelCellWidth, exabrick.cu:1129)
     adaptive_stride: bool = False
-    # run the plain-torch sweep (and, in render_slabs_shearwarp, the
-    # plain two-pass warp) even for CUDA tensors: the explicit comparison
-    # lane for the kernels, never chosen implicitly
+    # DVR headlight gradient shading (integrateVolume,
+    # exabrick.cu:1004-1010); takes the einsum lane
+    gradient_shading_dvr: bool = False
+    # run the plain-torch versions of the kernels even for CUDA tensors:
+    # the sweep (K1), the einsum lane's classification (K3, K4) and, in
+    # render_slabs_shearwarp, the two-pass warp (K2a, K2b).  The explicit
+    # comparison lane for the kernels, never chosen implicitly
     plain_sweep: bool = False
 
 
@@ -714,14 +739,25 @@ def ky_hints_for_camera(grids: LevelGrids, cfg: SlabConfig, cam_pos,
     return tuple(hints)
 
 
+def megakernel_lane(cfg: SlabConfig, t_start=None) -> bool:
+    """The lane ``render_slabs`` takes (the JAX package's ``_mode_flags``):
+    the megakernel, unless DVR gradient shading or a clip-box interval
+    start ``t_start`` needs the einsum lane's per-sample fields."""
+    return not cfg.gradient_shading_dvr and t_start is None
+
+
 def effective_chunk(grids: LevelGrids, cfg: SlabConfig, height: int,
-                    width: int, ky_hints) -> int:
-    """Slabs per chunk: ``cfg.chunk`` capped by the JAX package's rule
-    (its DMA lane's double-buffered VMEM windows had to fit
-    ``chunk_budget_mb``).  On the card this is no longer a memory cap,
-    but the chunk depth is part of the quadrature — adaptive-stride
-    groups form inside a chunk and the early exit falls between chunks —
-    so the port keeps the same arithmetic and renders the same image."""
+                    width: int, ky_hints, t_start=None) -> int:
+    """Slabs per chunk: on the megakernel lane ``cfg.chunk`` capped by the
+    JAX package's rule (its DMA lane's double-buffered VMEM windows had to
+    fit ``chunk_budget_mb``); on the einsum lane ``cfg.chunk``.  On the
+    card this is no longer a memory cap, but the chunk depth is part of
+    the quadrature — adaptive-stride groups form inside a chunk and the
+    early exit falls between chunks — so the port keeps the same
+    arithmetic and renders the same image."""
+    if not megakernel_lane(cfg, t_start):
+        return cfg.chunk
+
     def rows_resident(li, m):
         ny8 = -(-int(m.shape[1]) // 8) * 8
         if ky_hints is None:
@@ -739,6 +775,25 @@ def effective_chunk(grids: LevelGrids, cfg: SlabConfig, height: int,
 def _f32(v, device) -> torch.Tensor:
     """A float32 scalar tensor (keeps every op in float32, as XLA does)."""
     return torch.tensor(np.float32(v), device=device)
+
+
+def _two_taps(q: torch.Tensor, n: int):
+    """The two lattice points k0 = floor(q), k0 + 1 a tent at q reaches on
+    an axis of ``n`` points: their clamped indices, their tent weights
+    max(0, 1 - |q - k|) (the JAX package's ``_tent_matrix`` entries) and
+    their derivative weights -1, +1 (``_dtent_matrix``, half-open
+    support); a point outside [0, n-1] is absent (weights 0)."""
+    kf = torch.floor(q)
+    k0 = kf.to(torch.int64)
+    in0 = (k0 >= 0) & (k0 < n)
+    in1 = (k0 + 1 >= 0) & (k0 + 1 < n)
+    w0 = torch.where(in0, torch.clamp(1.0 - torch.abs(q - kf), min=0.0), 0.0)
+    w1 = torch.where(in1, torch.clamp(1.0 - torch.abs(q - (kf + 1.0)),
+                                      min=0.0), 0.0)
+    d0 = torch.where(in0, -1.0, 0.0)
+    d1 = torch.where(in1, 1.0, 0.0)
+    return ((torch.clamp(k0, 0, n - 1), torch.clamp(k0 + 1, 0, n - 1)),
+            (w0, w1), (d0, d1))
 
 
 def ray_components(cam_dir00, cam_du, cam_dv, width: int, height: int,
@@ -781,22 +836,182 @@ def scaled_luts(fs, num_channels: int):
             for c in range(num_channels)]
 
 
+def _lerp_z(vol, idx, wts):
+    """(nz, ny, nx) -> (S, ny, nx): two z planes per slab, weighted."""
+    return (wts[0][:, None, None] * vol.index_select(0, idx[0])
+            + wts[1][:, None, None] * vol.index_select(0, idx[1]))
+
+
+def _lerp_x(zl, idx, wts, width: int):
+    """(S, ny, nx) -> (S, ny, W): two lattice columns per screen column."""
+    s_, ny, _ = zl.shape
+
+    def tap(t):
+        cols = idx[t][:, None, :].expand(s_, ny, width)
+        return wts[t][:, None, :] * torch.gather(zl, 2, cols)
+
+    return tap(0) + tap(1)
+
+
+def _lerp_y(xl, idx, wts, height: int):
+    """(S, ny, W) -> (S, H, W): two lattice rows per screen row."""
+    s_, _, w = xl.shape
+
+    def tap(t):
+        rows = idx[t][:, :, None].expand(s_, height, w)
+        return wts[t][:, :, None] * torch.gather(xl, 1, rows)
+
+    return tap(0) + tap(1)
+
+
+class _EinsumLane:
+    """One frame's einsum lane (the JAX package's ``chunk_fields`` and its
+    classification, slabs.py:1887-1993, 2054-2120).
+
+    Per chunk: the fields sw, swv[c] (S, H, W) at every pixel of every
+    slab, and with gradient shading their grid-frame (z, y, x) partials
+    dsw, dswv[c] (3, S, H, W), each as the JAX package contracts them —
+    z, then x, then y — but as fp32 2-tap lerps where the reference ran
+    dense tent einsums; the clip interval's masks on sw; then K3, or K4
+    per channel with the headlight shading, the live gate, the channel
+    merge in the reference's order and the exclusive-cumprod composite.
+    Returns the chunk's (rgb (3, H, W) premultiplied, trans (H, W))."""
+
+    def __init__(self, grids, cfg, cam_pos, d00, rx, ry, sec, dz, luts,
+                 domains, height, width, t_start, t_stop):
+        dev = grids.device
+        self.grids, self.cfg, self.dev = grids, cfg, dev
+        self.h, self.w = height, width
+        self.rx, self.ry, self.sec, self.dz = rx, ry, sec, dz
+        self.luts, self.domains = luts, domains
+        self.oy, self.ox = (_f32(v, dev)
+                            for v in np.asarray(cam_pos, np.float32)[1:])
+
+        def per_pixel(t):
+            return (None if t is None else torch.as_tensor(
+                t, dtype=torch.float32).to(dev).reshape(height, width))
+
+        self.t_start, self.t_stop = per_pixel(t_start), per_pixel(t_stop)
+        if cfg.gradient_shading_dvr:
+            # unnormalized ray direction (rz, ry, rx); |L| folds into ndl
+            rz = _f32(d00[0], dev)
+            self.dirn = torch.stack([rz.expand(height, width),
+                                     ry[:, None].expand(height, width),
+                                     rx[None, :].expand(height, width)])
+            self.dl = torch.sqrt((self.dirn * self.dirn).sum(0))
+            self.finest = float(1 << min(grids.levels))
+
+    def fields(self, z_s, occ_s, scale):
+        g, dev, h, w = self.grids, self.dev, self.h, self.w
+        n_ch = self.cfg.num_channels
+        grad = self.cfg.gradient_shading_dvr
+        scale_d = scale.to(dev)
+        z_d = z_s.to(dev)
+        y_pos = self.oy + scale_d[:, None] * self.ry[None, :]  # (S, H)
+        x_pos = self.ox + scale_d[:, None] * self.rx[None, :]  # (S, W)
+
+        def zeros(*lead):
+            return torch.zeros((*lead, z_s.shape[0], h, w),
+                               dtype=torch.float32, device=dev)
+
+        acc = [zeros() for _ in range(1 + n_ch)]  # sw, then swv per channel
+        dacc = [zeros(3) for _ in range(1 + n_ch)] if grad else None
+        for li, L in enumerate(g.levels):
+            if not bool(occ_s[li].any()):
+                continue  # no cells near this chunk's slabs on this level
+            cw = float(1 << L)
+            org = g.origins[li]
+            nz, ny, nx = g.masks[li].shape
+            iz, wz, dwz = _two_taps(z_d / cw - _f32(org[0], dev) - 0.5, nz)
+            iy, wy, dwy = _two_taps(y_pos / cw - _f32(org[1], dev) - 0.5,
+                                    ny)
+            ix, wx, dwx = _two_taps(x_pos / cw - _f32(org[2], dev) - 0.5,
+                                    nx)
+            vols = [g.masks[li]] + [g.vals[li][c] for c in range(n_ch)]
+            for k, vol in enumerate(vols):
+                zl = _lerp_z(vol, iz, wz)
+                xl = _lerp_x(zl, ix, wx, w)
+                acc[k] = acc[k] + _lerp_y(xl, iy, wy, h)
+                if grad:
+                    # local-unit derivatives (INV_CELL_WIDTH == 1,
+                    # exabrick.cu:641): no 1/cw factor
+                    dacc[k] = dacc[k] + torch.stack([
+                        _lerp_y(_lerp_x(_lerp_z(vol, iz, dwz), ix, wx, w),
+                                iy, wy, h),
+                        _lerp_y(xl, iy, dwy, h),
+                        _lerp_y(_lerp_x(zl, ix, dwx, w), iy, wy, h)])
+        if not grad:
+            return acc[0], acc[1:], None, None
+        return acc[0], acc[1:], dacc[0], dacc[1:]
+
+    def chunk(self, z_s, occ_s, scale, live):
+        cfg, dev = self.cfg, self.dev
+        sw, swv, dsw, dswv = self.fields(z_s, occ_s, scale)
+        sc = scale.to(dev)[:, None, None]
+        if self.t_stop is not None:
+            sw = torch.where(sc < self.t_stop[None], sw, 0.0)
+        if self.t_start is not None:
+            sw = torch.where(sc >= self.t_start[None], sw, 0.0)
+        live_d = live.to(dev)
+        plain = cfg.plain_sweep
+        if cfg.num_channels == 1 and dsw is None:
+            return composite_chunk(sw, swv[0], self.sec, live_d,
+                                   self.luts[0], self.domains[0], self.dz,
+                                   plain=plain)
+        slab_a = torch.zeros_like(sw)
+        slab_rgb = torch.zeros((3,) + tuple(sw.shape), dtype=torch.float32,
+                               device=dev)
+        take = live_d[:, None, None]
+        for c in range(cfg.num_channels):
+            r, g, b, a = classify_field(sw, swv[c], self.sec, self.luts[c],
+                                        self.domains[c], self.dz,
+                                        plain=plain)
+            if dsw is not None:
+                # headlight shading (integrateVolume, exabrick.cu:
+                # 1004-1010): rgb scaled by |L.g|/(|g||L|) where |g| >
+                # finest_cw * 1e-6, g the quotient-rule basis gradient
+                gv = sw[None] * dswv[c] - swv[c][None] * dsw
+                gl = torch.sqrt((gv * gv).sum(0))
+                ndl = torch.abs((self.dirn[:, None] * gv).sum(0)) / (
+                    torch.clamp(gl * self.dl[None], min=1e-30))
+                shade = torch.where(gl > self.finest * 1e-6, ndl, 1.0)
+                r, g, b = r * shade, g * shade, b * shade
+            contrib = torch.where(take, (1.0 - slab_a) * a, 0.0)
+            slab_rgb = slab_rgb + contrib[None] * torch.stack([r, g, b])
+            slab_a = slab_a + contrib
+        cum = torch.cumprod(1.0 - slab_a, dim=0)
+        excl = torch.cat([torch.ones_like(cum[:1]), cum[:-1]])
+        return (excl[None] * slab_rgb).sum(dim=1), cum[-1]
+
+
 def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                  cam_du, cam_dv, width: int, height: int, knots=None,
                  ky_hints=None, products=None, return_products: bool = False,
                  products_chunks: int = 0, light_rest: bool = False,
-                 y_crop=None, lattice=None):
-    """Sweep-render one frame (``slabs.render_slabs``, megakernel lane).
-    Camera vectors are already permuted to the grid frame (z = sweep
-    axis) and separable, or ``lattice`` ((W,), (H,)) gives the lateral
-    ray components.  Returns (P, 4) rgba in row-major pixel order.
+                 y_crop=None, lattice=None, t_start=None, t_stop=None):
+    """Sweep-render one frame (``slabs.render_slabs``).  Camera vectors
+    are already permuted to the grid frame (z = sweep axis) and
+    separable, or ``lattice`` ((W,), (H,)) gives the lateral ray
+    components.  Returns (P, 4) rgba in row-major pixel order.
 
-    ``return_products=True`` returns the per-chunk camera products (the
-    sweep inputs, frame-state independent) instead of rendering: a tuple
-    of (ChunkPrep, scale) per chunk, or, with ``products_chunks`` > 0 and
-    ``light_rest``, {"full": the first M chunks, "light": light entries
-    (no mids) for the rest}.  Passing them back as ``products`` renders
-    the frame from them — identical output."""
+    ``t_start`` / ``t_stop``: optional (P,) sweep parameters before /
+    from which the volume is not integrated (the clip box's interval,
+    clipRay exabrick.cu:1258-1264); they take the einsum lane, as does
+    ``cfg.gradient_shading_dvr`` (``megakernel_lane``).
+
+    ``return_products=True`` (megakernel lane only) returns the
+    per-chunk camera products (the sweep inputs, frame-state
+    independent) instead of rendering: a tuple of (ChunkPrep, scale) per
+    chunk, or, with ``products_chunks`` > 0 and ``light_rest``,
+    {"full": the first M chunks, "light": light entries (no mids) for
+    the rest}.  Passing them back as ``products`` renders the frame from
+    them — identical output."""
+    mega = megakernel_lane(cfg, t_start)
+    if mega and t_stop is not None:
+        raise NotImplementedError(
+            "t_stop on the megakernel lane (surfaces) is not ported yet")
+    if return_products and not mega:
+        raise ValueError("return_products requires the megakernel lane")
     if y_crop is not None:
         grids = crop_grids_y(grids, y_crop)
     dev = grids.device
@@ -843,7 +1058,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                          occz[torch.clamp(k0 + 1, 0, nz - 1)], 0.0)
         lvl_occ.append((o0 + o1) > 0.0)
 
-    s_chunk = effective_chunk(grids, cfg, h, w, ky_hints)
+    s_chunk = effective_chunk(grids, cfg, h, w, ky_hints, t_start)
     n_chunks = -(-cfg.nslabs // s_chunk)
     pad = n_chunks * s_chunk - cfg.nslabs
     # pad slab tables to whole chunks (padded slabs inactive, z repeats
@@ -886,18 +1101,11 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
             i1z = torch.clamp(k0z + 1, 0, nz - 1)
             # x taps: the same tent entries the JAX package's dense tent
             # matrix holds (1 - |qx - k| at k = floor(qx), floor(qx)+1)
-            qx = x_pos / cw - _f32(org[2], dev) - 0.5  # (S, W)
-            kx = torch.floor(qx)
-            k0x = kx.to(torch.int64)
-            wx0 = torch.where((k0x >= 0) & (k0x < nx),
-                              torch.clamp(1.0 - torch.abs(qx - kx), min=0.0),
-                              0.0)[:, None, :]
-            wx1 = torch.where((k0x + 1 >= 0) & (k0x + 1 < nx),
-                              torch.clamp(1.0 - torch.abs(qx - (kx + 1.0)),
-                                          min=0.0), 0.0)[:, None, :]
-            ix0 = torch.clamp(k0x, 0, nx - 1)[:, None, :].expand(s_, ny, w)
-            ix1 = torch.clamp(k0x + 1, 0, nx - 1)[:, None, :].expand(
-                s_, ny, w)
+            (ix0, ix1), (wx0, wx1), _ = _two_taps(
+                x_pos / cw - _f32(org[2], dev) - 0.5, nx)  # (S, W)
+            wx0, wx1 = wx0[:, None, :], wx1[:, None, :]
+            ix0 = ix0[:, None, :].expand(s_, ny, w)
+            ix1 = ix1[:, None, :].expand(s_, ny, w)
             out = torch.empty((cfg.num_channels + 1, s_, ny, w), dtype=f32,
                               device=dev)
             comps = [grids.vals[li][c] for c in range(cfg.num_channels)]
@@ -966,7 +1174,10 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         full = products
     n_cached = len(full) + len(light)
 
-    tables = pack_luts(luts, domains, knots, dev)
+    tables = pack_luts(luts, domains, knots, dev) if mega else None
+    lane = None if mega else _EinsumLane(
+        grids, cfg, cam_pos, d00, rx, ry, sec, dz, luts, dom_np, h, w,
+        t_start, t_stop)
     color = torch.zeros((3, h, w), dtype=f32, device=dev)
     alpha = torch.zeros((h, w), dtype=f32, device=dev)
     for ci in range(n_chunks):
@@ -976,6 +1187,12 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         z_s, occ_s, scale, a_s = chunk_tables(ci)
         live = a_s & (scale > 1e-6)
         if not bool(live.any()):
+            continue
+        if lane is not None:
+            rgb, trans = lane.chunk(z_s, occ_s, scale, live)
+            # relative merge (no transmittance carry into the chunk)
+            color = color + (1.0 - alpha)[None] * rgb
+            alpha = 1.0 - (1.0 - alpha) * trans
             continue
         if ci < len(full):
             prep = full[ci][0]
@@ -1019,19 +1236,25 @@ def _cache_budget_mb(cfg: SlabConfig, device) -> float:
 
 def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
                         width: int, height: int, camera_cache=None,
-                        lattice=None):
+                        lattice=None, t_start=None, t_stop=None):
     """Permute/validate the camera, render transposed when pixel x runs
     along grid y, pick the sweep direction from the view sign, crop the
-    grids to the rows the rays reach, compress the transfer function to
-    knots, and render.  Returns (P, 4) rgba in row-major pixel order.
+    grids to the rows the rays reach (not under gradient shading, as in
+    the JAX package), compress the transfer function to knots, and
+    render.  Returns (P, 4) rgba in row-major pixel order.
 
     ``lattice``: ((W,), (H,)) lateral ray components of a shear-warp
     intermediate camera (``ShearWarp.lattice``); such a camera supplies
     only its eye and sweep direction and is never swapped.
 
-    ``camera_cache``: optional dict owned by the caller.  The per-chunk
-    camera products are computed once per (grids, camera, cfg) key and
-    reused at the same pose; when their estimated size exceeds the cache
+    ``t_start`` / ``t_stop``: optional (P,) sweep-parameter interval per
+    pixel of this render (the clip box, ``renderer.clip_interval``); they
+    and ``cfg.gradient_shading_dvr`` take the einsum lane.
+
+    ``camera_cache``: optional dict owned by the caller (megakernel lane
+    only; the einsum lane has no product cache).  The per-chunk camera
+    products are computed once per (grids, camera, cfg) key and reused
+    at the same pose; when their estimated size exceeds the cache
     budget, a front prefix of chunks is cached in full and the rest as
     light entries (mids recomputed per frame).  The stale pose's products
     are dropped before a rebuild.  Output is identical either way."""
@@ -1048,20 +1271,25 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
     pos, dir00, du, dv = permute_camera(camera, axis)
     cfg = dataclasses.replace(cfg, flip=bool(dir00[0] < 0))
 
-    y_crop = (y_crop_for_camera(grids, cfg, pos, dir00, du, width)
-              if swapped else
-              y_crop_for_camera(grids, cfg, pos, dir00, dv, height,
-                                lattice=lattice))
+    mega = megakernel_lane(cfg, t_start)
+    y_crop = None
+    if not cfg.gradient_shading_dvr:
+        y_crop = (y_crop_for_camera(grids, cfg, pos, dir00, du, width)
+                  if swapped else
+                  y_crop_for_camera(grids, cfg, pos, dir00, dv, height,
+                                    lattice=lattice))
 
     # host-side PWL compression of the transfer function (~10x fewer
-    # classification knots for control-point colormaps)
-    knots = compress_pwl(scaled_luts(fs, cfg.num_channels))
+    # classification knots for control-point colormaps; the megakernel's)
+    knots = compress_pwl(scaled_luts(fs, cfg.num_channels)) if mega else None
 
     def cached_products(pos_, dir00_, du_, dv_, w_, h_, hints):
         if camera_cache is None:
             return None
         camera_cache.pop("tier", None)
         camera_cache.pop("declined", None)
+        if not mega:
+            return None  # einsum lane: no product cache
         key_cam = tuple(np.asarray(v, np.float64).tobytes()
                         for v in (pos_, dir00_, du_, dv_))
         key_lat = (None if lattice is None else tuple(
@@ -1108,11 +1336,18 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
         return render_slabs(grids, fs, cfg, pos, dir00, du, dv, width,
                             height, knots=knots, ky_hints=hints,
                             products=products, y_crop=y_crop,
-                            lattice=lattice)
+                            lattice=lattice, t_start=t_start, t_stop=t_stop)
+
+    def transposed(t):
+        # the internal render is transposed: internal row = final column
+        return (None if t is None else torch.as_tensor(t).reshape(
+            height, width).T.reshape(-1))
+
     # transposed internals: the v axis is du and the row count is width
     hints = ky_hints_for_camera(grids, cfg, pos, dir00, du, width, height)
     products = cached_products(pos, dir00, dv, du, height, width, hints)
     rgba = render_slabs(grids, fs, cfg, pos, dir00, dv, du, height, width,
                         knots=knots, ky_hints=hints, products=products,
-                        y_crop=y_crop)
+                        y_crop=y_crop, t_start=transposed(t_start),
+                        t_stop=transposed(t_stop))
     return rgba.reshape(width, height, 4).permute(1, 0, 2).reshape(-1, 4)

@@ -458,13 +458,8 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
     tr, tc = tile_shape(h, w, tiles, adaptive_stride)
     n_rt, n_ct = -(-h // tr), -(-w // tc)
 
-    def check(name, t, shape, dtype=torch.float32):
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: need contiguous {dtype} on {dev}, got "
-                f"{t.dtype} on {t.device} contiguous={t.is_contiguous()}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+    def check(name, t, shape):
+        kernels.check_tensor(name, t, dev, shape)
 
     for li, m in enumerate(prep.mids):
         check(f"mids[{li}]", m, (n_ch + 1, s_, m.shape[2], w))
@@ -507,16 +502,11 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
     ptr_a = np.asarray([ptr(t) for t in ptrs], np.uint64)
     int_a = np.asarray(ints, np.int32)
     flt_a = np.asarray(flts, np.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = kernels.load()
-    err = lib.owx_sweep_chunk(
-        ptr_a.ctypes.data_as(ctypes.c_void_p), len(ptr_a),
-        int_a.ctypes.data_as(ctypes.c_void_p), len(int_a),
-        flt_a.ctypes.data_as(ctypes.c_void_p), len(flt_a),
-        ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"K1 launch failed: {kernels.error_string(err)} ({err})")
+    kernels.launch("owx_sweep_chunk", "K1",
+                   ptr_a.ctypes.data_as(ctypes.c_void_p), len(ptr_a),
+                   int_a.ctypes.data_as(ctypes.c_void_p), len(int_a),
+                   flt_a.ctypes.data_as(ctypes.c_void_p), len(flt_a),
+                   kernels.stream_arg(dev))
     sweep_chunk_cuda.launches += 1
     return out[:3], out[3]
 

@@ -240,24 +240,6 @@ def warp_pass2_reference(v_img, wi0, params, sw, width: int, height: int,
     return out.reshape(c, height * width).T
 
 
-def _check(name, t, dev, shape, dtype=torch.float32):
-    if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: need contiguous {dtype} on {dev}, got {t.dtype} on "
-            f"{t.device} contiguous={t.is_contiguous()}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-
-
-def _launch(fn_name, *args):
-    from .. import kernels
-
-    err = getattr(kernels.load(), fn_name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{kernels.error_string(err)} ({err})")
-
-
 def warp_pass1_cuda(rgba_i, wj0, params, sw, height: int, bj: int):
     """Launch K2a (``csrc/warp.cu``) on the current stream.  Same
     arguments and result as ``warp_pass1_reference``; raises on any input
@@ -277,17 +259,17 @@ def warp_pass1_cuda(rgba_i, wj0, params, sw, height: int, bj: int):
             or tuple(rgba_i.shape) != (ih * iw, c)):
         raise ValueError(f"rgba_i: need float32 ({ih * iw}, {c}) on {dev}, "
                          f"got {rgba_i.dtype} {tuple(rgba_i.shape)}")
-    _check("wj0", wj0, dev, (n_vt, n_at), torch.int32)
+    kernels.check_tensor("wj0", wj0, dev, (n_vt, n_at), torch.int32)
     hp = np.ascontiguousarray(params.cpu().numpy(), np.float32)
     out = torch.empty((c, n_vt * _TR, iw), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     # any strides: the sweep's rgba is a transposed (C, P) image, the
     # Renderer's composited color whatever layout the composite kept
-    _launch("owx_warp_pass1", ctypes.c_void_p(rgba_i.data_ptr()),
-            rgba_i.stride(0), rgba_i.stride(1),
-            ctypes.c_void_p(wj0.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            hp.ctypes.data_as(ctypes.c_void_p), c, iw, ih, height, bj,
-            ctypes.c_void_p(stream))
+    kernels.launch("owx_warp_pass1", "K2a",
+                   ctypes.c_void_p(rgba_i.data_ptr()), rgba_i.stride(0),
+                   rgba_i.stride(1), ctypes.c_void_p(wj0.data_ptr()),
+                   ctypes.c_void_p(out.data_ptr()),
+                   hp.ctypes.data_as(ctypes.c_void_p), c, iw, ih, height, bj,
+                   kernels.stream_arg(dev))
     warp_pass1_cuda.launches += 1
     return out
 
@@ -311,15 +293,16 @@ def warp_pass2_cuda(v_img, wi0, params, sw, width: int, height: int,
     if not 1 <= c <= kernels.MAX_CHANNELS:
         raise ValueError(f"{c} channels; K2 takes 1..{kernels.MAX_CHANNELS}")
     n_vt, n_ut = -(-height // _TR), -(-width // _TC)
-    _check("v_img", v_img, dev, (c, n_vt * _TR, iw))
-    _check("wi0", wi0, dev, (n_vt, n_ut), torch.int32)
+    kernels.check_tensor("v_img", v_img, dev, (c, n_vt * _TR, iw))
+    kernels.check_tensor("wi0", wi0, dev, (n_vt, n_ut), torch.int32)
     hp = np.ascontiguousarray(params.cpu().numpy(), np.float32)
     out = torch.empty((height * width, c), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch("owx_warp_pass2", ctypes.c_void_p(v_img.data_ptr()),
-            ctypes.c_void_p(wi0.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            hp.ctypes.data_as(ctypes.c_void_p), c, iw, width, height, bi,
-            ctypes.c_void_p(stream))
+    kernels.launch("owx_warp_pass2", "K2b",
+                   ctypes.c_void_p(v_img.data_ptr()),
+                   ctypes.c_void_p(wi0.data_ptr()),
+                   ctypes.c_void_p(out.data_ptr()),
+                   hp.ctypes.data_as(ctypes.c_void_p), c, iw, width, height,
+                   bi, kernels.stream_arg(dev))
     warp_pass2_cuda.launches += 1
     return out
 

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: K1 (csrc/sweep.cu) against its plain-torch
-version, and the port's main path on CUDA against the same path on the
+"""PyTorch port on the card: K1 (csrc/sweep.cu), K2a/K2b (csrc/warp.cu)
+and K3/K4 (csrc/xf.cu) against their plain-torch versions, and the
+port's main path and einsum lane on CUDA against the same paths on the
 CPU.  Marked ``cuda``; each test skips where no card is present (the
 check runs inside the fixture, never at import).  Imports no jax, so it
 also runs where only torch is installed; there, skip the suite's
@@ -73,7 +74,7 @@ def test_main_path_on_card_matches_cpu(cuda):
     from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
 
     lower, level, scal = volume_to_cells(synthetic_volume(16), 0.004, 3)
-    g_cpu = level_grids_from_cells(lower, level, scal[None])
+    g_cpu = level_grids_from_cells(lower, level, scal[None], device="cpu")
     g_gpu = g_cpu.to(cuda)
     cam = Camera.look_at([8.0, 8.0, 40.0], [8.0, 8.0, 8.0], [0, 1, 0],
                          30.0, 24, 24)
@@ -126,3 +127,86 @@ def test_k2_matches_plain_version(cuda, c, layout):
     assert float((got - want).abs().max()) < 1e-5
     cpu = PW.warp_two_pass(img.cpu(), sw, w, h, bi, bj, **kw)
     assert float((got.cpu() - cpu).abs().max()) < 1e-5
+
+
+def _xf_inputs(s, h, w, seed):
+    """Seeded einsum-lane fields: invalid samples (sw = 0), values beyond
+    the TF domain on both sides, a dead slab, grazing rays (large sec),
+    and a LUT with opacity-1 steps."""
+    rng = np.random.default_rng(seed)
+    sw = rng.uniform(0.0, 2.0, (s, h, w)).astype(np.float32)
+    sw[rng.uniform(size=sw.shape) < 0.15] = 0.0
+    value = rng.uniform(-0.4, 1.4, (s, h, w)).astype(np.float32)
+    swv = (value * np.where(sw > 0, sw, 1.0)).astype(np.float32)
+    sec = rng.uniform(1.0, 6.0, (h, w)).astype(np.float32)
+    sec[0, :7] = 900.0
+    live = np.ones(s, bool)
+    live[1] = False
+    lut = rng.uniform(0.0, 1.0, (128, 4)).astype(np.float32)
+    lut[64:80, 3] = 1.0
+    return sw, swv, sec, live, lut
+
+
+@pytest.mark.parametrize("shape", [(5, 21, 200), (12, 40, 512)])
+def test_k3_k4_match_plain_version(cuda, shape):
+    """K3 and K4 (csrc/xf.cu) against composite_chunk_reference /
+    classify_field_reference on the card: every output value within
+    1e-5, launch counts up by one each."""
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    sw, swv, sec, live, lut = (torch.from_numpy(a).to(cuda)
+                               for a in _xf_inputs(*shape, seed=3))
+    dom, dz = np.asarray([0.1, 0.9], np.float32), np.float32(0.75)
+    n3, n4 = PC.composite_chunk_cuda.launches, PC.classify_field_cuda.launches
+    got4 = PC.classify_field(sw, swv, sec, lut, dom, dz)
+    got3 = PC.composite_chunk(sw, swv, sec, live, lut, dom, dz)
+    assert PC.classify_field_cuda.launches == n4 + 1
+    assert PC.composite_chunk_cuda.launches == n3 + 1
+    want4 = PC.classify_field(sw, swv, sec, lut, dom, dz, plain=True)
+    want3 = PC.composite_chunk(sw, swv, sec, live, lut, dom, dz, plain=True)
+    torch.cuda.synchronize()
+    for g, p in zip(got4 + got3, want4 + want3):
+        assert g.shape == p.shape and torch.isfinite(g).all()
+        assert float((g - p).abs().max()) <= 1e-5
+    assert float(got4[3].max()) > 0.5 and float(got3[1].min()) < 0.5
+
+
+@pytest.mark.parametrize("channels,grad", [(1, False), (2, False), (1, True),
+                                           (2, True)])
+def test_einsum_lane_on_card_matches_cpu(cuda, channels, grad):
+    """The einsum lane (clip box interval, gradient shading, two
+    channels) on the card (K3 or K4) == on the CPU (plain versions)."""
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render import classify as PC
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.renderer import clip_interval
+    from owlexabrick_tpu_torch.render.slabs import (
+        SlabConfig, level_grids_from_cells, render_slabs_camera)
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    lower, level, scal = volume_to_cells(synthetic_volume(16), 0.004, 3)
+    fields = np.stack([scal, 1.05 - scal][:channels])
+    g_cpu = level_grids_from_cells(lower, level, fields, device="cpu")
+    g_gpu = g_cpu.to(cuda)
+    cam = Camera.look_at([8.0, 8.0, 40.0], [8.0, 8.0, 8.0], [0, 1, 0],
+                         30.0, 24, 24)
+    fs = make_frame_state(cam, channels, [[0.0, 1.05], [0.0, 4.0]][:channels],
+                          dt=1.0, opacity_scale=0.8)
+    cfg = SlabConfig(num_channels=channels, nslabs=20, chunk=4,
+                     gradient_shading_dvr=grad)
+    box = ([4.0, 0.0, 0.0], [16.0, 16.0, 12.8])
+    kernel = PC.classify_field_cuda if channels > 1 or grad else (
+        PC.composite_chunk_cuda)
+    frames = []
+    for dev, g in (("cuda", g_gpu), ("cpu", g_cpu)):
+        t0, t1 = clip_interval(2, cam, None, 24, 24, np.eye(3, 4), cam.pos,
+                               *box, device=dev)
+        n0 = kernel.launches
+        frames.append(render_slabs_camera(g, fs, cfg, cam, 24, 24,
+                                          t_start=t0, t_stop=t1).cpu())
+        assert (kernel.launches > n0) == (dev == "cuda")
+    got, want = frames
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 1e-5
+    assert float(want[:, 3].max()) > 0.3

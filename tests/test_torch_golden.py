@@ -64,12 +64,26 @@ def test_renderer_static_pose_uses_camera_cache(cells, tilted):
 
 
 def test_renderer_unported_features_raise(cells):
-    r = _renderer(cells, False)
+    """Iso surfaces, AO and contour planes still raise; the clip box and
+    DVR gradient shading render (the einsum lane)."""
     import dataclasses
 
-    r.fs = dataclasses.replace(r.fs, clip_enabled=np.bool_(True))
-    with pytest.raises(NotImplementedError):
-        r.render()
+    for patch in (dict(iso_enabled=np.asarray([True, False])),
+                  dict(ao_enabled=np.bool_(True)),
+                  dict(contour_enabled=np.asarray([True, False, False]))):
+        r = _renderer(cells, False)
+        r.fs = dataclasses.replace(r.fs, **patch)
+        with pytest.raises(NotImplementedError):
+            r.render()
+    r = _renderer(cells, False)
+    r.set_clip_box(True, [N * 0.25, 0.0, 0.0], [N, N, N * 0.8])
+    img = r.image_uint8(r.render())
+    assert (img[..., :3] > 16).any()
+    fs = dataclasses.replace(r.fs, clip_enabled=np.bool_(False))
+    r = Renderer(cells, W, H, cfg=RenderConfig(gradient_shading_dvr=True),
+                 frame_state=fs, device="cpu")
+    assert r.enable_fast_path() and r._fast[1].gradient_shading_dvr
+    assert (r.image_uint8(r.render())[..., :3] > 16).any()
     # a tilted camera is no longer refused: it takes shear-warp
     tilted = Camera.look_at([N * 0.9, N * 0.8, N * 2.1],
                             [N / 2, N / 2, N / 2], [0, 1, 0], 45.0, W, H)

@@ -110,9 +110,9 @@ def test_level_grids_bit_equal(text, axis):
     scene, bricks, *_ = scene_from_cells(lower, level, [scal])
     ref = R.build_level_grids(bricks, scene.scalars, axis=axis, device=False)
     _assert_grids_equal(ref, P.level_grids_from_cells(
-        lower, level, scal[None], axis=axis))
+        lower, level, scal[None], axis=axis, device="cpu"))
     _assert_grids_equal(ref, P.build_level_grids(
-        bricks, scene.scalars, axis=axis))
+        bricks, scene.scalars, axis=axis, device="cpu"))
     _assert_grids_equal(ref, interop.level_grids_from_reference(ref))
 
 
@@ -134,7 +134,7 @@ def test_slab_scene_grids_match_brick_route(kind):
         assert np.array_equal(a, b)
     scene, bricks, *_ = scene_from_cells(lower, level, [scal])
     ref = R.build_level_grids(bricks, scene.scalars, axis=2, device=False)
-    got, meta = bench_scene.slab_scene_grids(kind, n)
+    got, meta = bench_scene.slab_scene_grids(kind, n, device="cpu")
     _assert_grids_equal(ref, got)
     assert meta["n_cells"] == lower.shape[0]
 

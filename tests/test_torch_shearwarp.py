@@ -385,6 +385,7 @@ def test_renderers_take_reorient_fallback_for_oblique_frustum(mid_orbit):
     port = Renderer((lower, level, scal[None]), SIZE, SIZE,
                     cfg=RenderConfig(num_channels=1),
                     frame_state=interop.frame_state_from_reference(fs),
+                    device="cpu",
                     jitter=chip_smoke.GOLDEN_JITTER.__getitem__)
     assert port._pick_shearwarp(_cam("wide_diagonal")) is None
     for r, cam_type in ((ref, RefCamera), (port, Camera)):
