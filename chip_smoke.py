@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``owlexabrick_tpu_torch/csrc`` and
-drives the port's three paths on the card: the axis-aligned slab-sweep
-DVR, the shear-warp tilted-camera path (an axis-aligned lattice camera
-swept by K1, then the two-pass warp K2a + K2b), and the sweep's einsum
-lane (the clip box, DVR gradient shading and multi-channel clip: fields
-rebuilt per slab, then K3 or K4).  Phases, each of which fails the run:
+drives the port's four paths on the card: the axis-aligned slab-sweep
+DVR (camera products whose x stage is K6, then the sweep K1), the
+shear-warp tilted-camera path (an axis-aligned lattice camera swept by
+K6 + K1, then the two-pass warp K2a + K2b), the sweep's einsum lane (the
+clip box, DVR gradient shading and multi-channel clip: fields rebuilt
+per slab, then K3 or K4) and the iso-surface path (the iso sweep, its
+colormap recolor through K5, the volume stopped at the hits by K1's
+surface stop).  Phases, each of which fails the run:
 
 1. device: the card's name and power limit, and the kernel build
    (``nvcc -Xptxas -v``'s report);
@@ -27,13 +30,13 @@ rebuilt per slab, then K3 or K4).  Phases, each of which fails the run:
 5. the aligned path at 1920x1080 through ``render_slabs_camera`` on the
    bench's scenes, camera and config (``headline``: 64^3 blobs, 72
    slabs; ``blobs256``: 256^3 blobs, 264 slabs, chunk 24, budget 16),
-   uncached and through the camera cache;
+   uncached (K6 and K1) and through the camera cache (K1);
 6. the tilted path: the same scenes and configs with the eye at
    (0.9n, 0.8n, 2.2n) (``headline_tilted``, ``blobs256_tilted``) through
    ``render_slabs_shearwarp``, uncached and cached, then a few
    progressive frames of ``headline_tilted`` through the ``Renderer``;
-7. every row's kernel frame against the plain-torch frame (plain sweep,
-   plain warp) on the card;
+7. every row's kernel frame against the plain-torch frame (plain x
+   stage, plain sweep, plain warp) on the card;
 8. K3 and K4 (``csrc/xf.cu``) against ``composite_chunk_reference`` /
    ``classify_field_reference`` on seeded 1080p fields at S = 12 and
    S = 24 and on a real chunk of the ``headline_clip`` row, with times
@@ -45,24 +48,40 @@ rebuilt per slab, then K3 or K4).  Phases, each of which fails the run:
    (``headline_gradient``, ``blobs256_gradient``) and two channels under
    the box (``headline_2ch_clip``); then progressive ``Renderer`` frames
    with the clip box, aligned and tilted, and with gradient shading;
-10. every einsum-lane row's kernel frame against its plain frame.
+10. every einsum-lane row's kernel frame against its plain frame;
+11. K5 (``csrc/xf.cu``) against ``xf_classify_reference`` on seeded
+    texel coordinates at 1080p and on the colormap row's real hit image;
+    K6 (``csrc/mids.cu``) against ``xresample_mids_reference`` on a
+    seeded level block and on the largest level block of a real frame
+    of the headline and of blobs256; each also against one
+    PyTorch call that computes its function (``grid_sample``), the
+    yardstick ``library_ms``; K1 with a surface stop cutting about half
+    the slabs of a seeded 1080p chunk was checked in phase 2;
+12. the iso path at 1920x1080, one iso surface at 0.524 of the value
+    maximum, gradient shading iso on: ``headline_iso``, ``blobs256_iso``
+    (uncached and cached), ``headline_tilted_iso`` (shear-warp) and
+    ``headline_2ch_iso_colormap`` (K5), then progressive ``Renderer``
+    frames with the iso surface, aligned and tilted, and every iso row's
+    kernel frame against its plain frame.
 
 Launch counts are set to 0 just before each path (aligned, tilted,
-einsum lane) and read just after; a kernel of a path that launched no
-time there fails the run.  Each kernel's bound is the larger of its
-bytes (each input read once, each output written once) over 3.35 TB/s
-and its float32 operations over 67 TFLOP/s (the H100 SXM's published
-peaks), counted from this run's inputs.
+einsum lane, iso) and read just after; a kernel of a path that launched
+no time there fails the run.  Each kernel's bound is the
+larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
+SXM's published peaks), counted from this run's inputs.
 
 ``--profile`` adds a torch.profiler trace of one uncached and one cached
-frame per row (one frame per einsum-lane row): device time by kernel and
-the device's busy share, and Chrome traces of the megakernel rows
+frame per row (one frame per einsum-lane and iso row): device time by
+kernel (the top eight, and each of the port's kernels) and the device's
+busy share, and Chrome traces of the aligned and tilted megakernel rows
 (``phase_profile``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card, and the one before that lists each
-kernel with its launches on the three paths, its error against its plain
-version, its time, its plain version's time and its bound.
+kernel with its launches on the four paths, its error against its plain
+version, its time, its plain version's time, its bound and, for K5 and
+K6, the library call's time.
 Exits non-zero without a CUDA card or without the port's sources.
 Needs no JAX and no network.
 """
@@ -85,8 +104,10 @@ K2A_REPLACES = "owlexabrick_tpu/render/pallas_warp.py:71"
 K2B_REPLACES = "owlexabrick_tpu/render/pallas_warp.py:120"
 K3_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:178"
 K4_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:46"
-# K2, K3 and K4 against their plain versions: max abs over every output
-# value
+K5_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:24"
+K6_REPLACES = "owlexabrick_tpu/render/pallas_mids.py:47"
+# K2, K3, K4, K5 and K6 against their plain versions: max abs over every
+# output value
 TOL_K2 = 1e-5
 TOL_XF = 1e-5
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
@@ -96,8 +117,18 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # K1 adds 3 per component and level (the y lerp) to ~30 for the quotient,
 # texel coordinate, LUT, opacity and composite; K3 ~30 (classification,
 # opacity, composite), K4 ~25 (no composite); K2a/K2b ~20 per output
-# value (four Catmull-Rom taps and their weights)
-OPS_K1_BASE, OPS_K3, OPS_K4, OPS_K2 = 30, 30, 25, 20
+# value (four Catmull-Rom taps and their weights); K5 ~8 per element (the
+# texel index, fraction and four lerps); K6 3 per output value (two taps)
+OPS_K1_BASE, OPS_K3, OPS_K4, OPS_K2, OPS_K5, OPS_K6 = 30, 30, 25, 20, 8, 3
+# the port's kernel functions in csrc/ (profiler kernel names) by id
+PORT_KERNELS = {"sweep_kernel": "K1", "warp_pass1_kernel": "K2a",
+                "warp_pass2_kernel": "K2b",
+                "composite_chunk_kernel": "K3",
+                "classify_field_kernel": "K4", "xf_classify_kernel": "K5",
+                "xresample_mids_kernel": "K6"}
+# the iso rows' iso value as a fraction of the scene's value maximum: the
+# iso golden's 0.55 on its [0, 1.05] TF domain
+ISO_FRAC = 0.524
 # the clipbox golden's box (tests/test_golden_images.py:168-180) as
 # fractions of the scene's edge n
 CLIP_LO, CLIP_HI = (0.25, 0.0, 0.0), (1.0, 1.0, 0.8)
@@ -223,8 +254,9 @@ def chunk_inputs(grids, cam, fs, cfg, width, height, chunk_index,
     knots = slabs.compress_pwl(luts_np)
     _, _, sec = slabs.ray_components(dir00, du, dv, width, height, dev,
                                      lattice=lattice)
-    return dict(prep=prep, live=live, act_f=act_f, act_all_f=act_all_f,
-                sec=sec, dz=slabs.slab_spacing(grids, cfg.nslabs),
+    return dict(prep=prep, scale=scale, live=live, act_f=act_f,
+                act_all_f=act_all_f, sec=sec,
+                dz=slabs.slab_spacing(grids, cfg.nslabs),
                 tables_knots=pack_luts([lut], domains, knots, dev),
                 tables_dense=pack_luts([lut], domains, None, dev))
 
@@ -262,14 +294,44 @@ def time_ms(fn, iters, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def k1_check(name, ci, prep, pt, tables, width, height, timing):
-    """K1 vs plain on one chunk; returns a result dict (fails loudly)."""
+def graph_ms(fn, iters=50):
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA
+    graph, replayed between CUDA events, so that the host's launch cost
+    (a ctypes call is ~20-40 us) does not stand in for a kernel that
+    runs shorter than that."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def k1_check(name, ci, prep, pt, tables, width, height, timing, stop=None):
+    """K1 vs plain on one chunk, with the surface stop ``stop`` ((t_slab
+    (S,), t_stop (H, W)) or None); returns a result dict (fails loudly)."""
     import torch
 
     from owlexabrick_tpu_torch.render.sweep import (
         sweep_chunk_cuda, sweep_chunk_reference)
 
-    kw = dict(act_f=ci["act_f"], act_all_f=ci["act_all_f"], prev_trans=pt)
+    kw = dict(act_f=ci["act_f"], act_all_f=ci["act_all_f"], prev_trans=pt,
+              t_stop=stop)
     args = (prep, ci["sec"], ci["live"], tables, ci["dz"], height, width)
     n0 = sweep_chunk_cuda.launches
     rgb_k, t_k = sweep_chunk_cuda(*args, **kw)
@@ -283,15 +345,20 @@ def k1_check(name, ci, prep, pt, tables, width, height, timing):
         res["ms"] = time_ms(lambda: sweep_chunk_cuda(*args, **kw), 50)
         res["plain_ms"] = time_ms(lambda: sweep_chunk_reference(*args, **kw),
                                   3, warmup=1)
-        # the samples this chunk's activity tables leave to classify
+        # the samples this chunk's activity tables (and stop) leave to
+        # classify
         samples = (float((ci["act_f"] > 0).float().mean())
                    * prep.y_pos.shape[0] * height * width)
+        if stop is not None:
+            res["stop_keeps_share"] = float(
+                (stop[0][:, None, None] < stop[1][None]).float().mean())
+            samples *= res["stop_keeps_share"]
         comps = prep.mids[0].shape[0]
         res["bound_ms"], res["bound_by"] = bound(
             nbytes(*prep.mids, prep.acts_l, prep.vmin, prep.vmax,
                    prep.y_pos, ci["sec"], ci["act_f"], ci["act_all_f"], pt,
                    *[t for t in tables if isinstance(t, torch.Tensor)],
-                   rgb_k, t_k),
+                   *(stop or ()), rgb_k, t_k),
             samples * (3 * comps * len(prep.mids) + OPS_K1_BASE))
     res["k1_launches"] = sweep_chunk_cuda.launches - n0
     log("k1 check:", json.dumps(res))
@@ -303,7 +370,10 @@ def k1_check(name, ci, prep, pt, tables, width, height, timing):
 
 def phase_k1(setups, tilted, width, height, device):
     """Phase 2: K1 against sweep_chunk_reference at the main path's
-    chunk shapes, the tilted lattice's included."""
+    chunk shapes, the tilted lattice's included, with and without a
+    surface stop."""
+    import torch
+
     head = setups["headline"]
     ci = chunk_inputs(*head[:4], width, height, chunk_index=2)
     results = []
@@ -314,6 +384,18 @@ def phase_k1(setups, tilted, width, height, device):
                             ci["tables_knots"], width, height, timing=True))
     results.append(k1_check("headline_seeded_dense", ci, prep, pt,
                             ci["tables_dense"], width, height, timing=False))
+    # the surface stop: a seeded per-pixel stop between the chunk's first
+    # and last slab cuts about half its slabs
+    g = torch.Generator(device="cpu").manual_seed(77)
+    t_slab = ci["scale"].to(device)
+    lo, hi = float(t_slab.min()), float(t_slab.max())
+    t_img = (lo + (hi - lo) * torch.rand((height, width), generator=g)).to(
+        device)
+    for name, tables, timing in (("knots", ci["tables_knots"], True),
+                                 ("dense", ci["tables_dense"], False)):
+        results.append(k1_check(f"headline_seeded_{name}_stop", ci, prep,
+                                pt, tables, width, height, timing=timing,
+                                stop=(t_slab, t_img)))
     results.append(k1_check("headline_real_chunk", ci, ci["prep"],
                             None, ci["tables_knots"], width, height,
                             timing=False))
@@ -462,14 +544,16 @@ def render_row(row, width, height, cfg=None, cache=None):
 
 def _launchers():
     from owlexabrick_tpu_torch.render.classify import (
-        classify_field_cuda, composite_chunk_cuda)
+        classify_field_cuda, composite_chunk_cuda, xf_classify_cuda)
+    from owlexabrick_tpu_torch.render.mids import xresample_mids_cuda
     from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
     from owlexabrick_tpu_torch.render.warp import (
         warp_pass1_cuda, warp_pass2_cuda)
 
     return dict(K1=sweep_chunk_cuda, K2a=warp_pass1_cuda,
                 K2b=warp_pass2_cuda, K3=composite_chunk_cuda,
-                K4=classify_field_cuda)
+                K4=classify_field_cuda, K5=xf_classify_cuda,
+                K6=xresample_mids_cuda)
 
 
 def launch_counts():
@@ -857,6 +941,326 @@ def phase_renderer_lane(setups, tilted, n, width, height, device,
             raise SystemExit(f"{name}: Renderer frames not finite or blank")
 
 
+def iso_setups(setups, tilted, lanes):
+    """The iso path's rows at 1920x1080 on the bench's scenes: one iso
+    surface at ISO_FRAC of the scene's value maximum, gradient shading
+    iso on; the headline and blobs256 aligned (``headline_iso``,
+    ``blobs256_iso``), the headline through shear-warp
+    (``headline_tilted_iso``), and the two-channel headline of the
+    ``headline_2ch_clip`` row with the iso on channel 0 and its hits
+    recolored by channel 1 (``headline_2ch_iso_colormap``, K5)."""
+    import dataclasses
+
+    def row(setup, sw=None, cached=True, **cfg_kw):
+        grids, cam, fs, cfg, meta = setup[:5]
+        fs = dataclasses.replace(
+            fs, iso_enabled=np.asarray([True, False]),
+            iso_value=np.asarray([ISO_FRAC * meta["value_max"], 0.0],
+                                 np.float32),
+            iso_channel=np.zeros(2, np.int32))
+        return dict(grids=grids, cam=cam, fs=fs, meta=meta, sw=sw,
+                    cached=cached, cfg=dataclasses.replace(cfg, **cfg_kw))
+
+    head, b256 = setups["headline"], setups["blobs256"]
+    ht = tilted["headline_tilted"]
+    two = lanes["headline_2ch_clip"]
+    return dict(
+        headline_iso=row(head), blobs256_iso=row(b256),
+        headline_tilted_iso=row(ht, sw=ht[5], cached=False),
+        headline_2ch_iso_colormap=row(
+            (two["grids"], two["cam"], two["fs"], two["cfg"], head[4]),
+            cached=False, colormap_channel=1))
+
+
+def render_iso(row, width, height, cache=None, plain=False):
+    """One frame of an iso row, as the Renderer composes it (renderer.py:
+    604-707, no AO): the iso sweep (``render_slabs_iso_camera``), its
+    hits shaded by |dir . N| as the background, and the volume in front
+    of them (``render_slabs_camera`` with ``t_stop`` = the hit depth:
+    K1's stop); on a shear-warp row on the lattice, then warped.
+    Returns (P, 4): the composited color and the volume's alpha.
+    ``plain`` runs the plain versions of every kernel."""
+    import dataclasses
+
+    import torch
+
+    from owlexabrick_tpu_torch.render.dvr import composite_background
+    from owlexabrick_tpu_torch.render.shearwarp import warp_image
+    from owlexabrick_tpu_torch.render.slabs import (
+        render_slabs_camera, render_slabs_iso_camera)
+
+    grids, cam, sw = row["grids"], row["cam"], row["sw"]
+    cfg = dataclasses.replace(row["cfg"], plain_sweep=plain)
+    cam_s, w, h, lattice = ((sw.camera, sw.width, sw.height, sw.lattice())
+                            if sw is not None else (cam, width, height, None))
+    iso_rgba, t_iso, n, cos = render_slabs_iso_camera(
+        grids, row["fs"], cfg, cam_s, w, h, lattice=lattice,
+        return_normals=True)
+    bg = iso_rgba[:, :3] * iso_rgba[:, 3:4]
+    bg = torch.where((torch.linalg.norm(n, dim=-1) > 0.0)[:, None],
+                     bg * cos[:, None], bg)
+    rgba = render_slabs_camera(grids, row["fs"], cfg, cam_s, w, h,
+                               lattice=lattice, t_stop=t_iso,
+                               camera_cache=cache)
+    out = torch.cat([composite_background(rgba, bg), rgba[:, 3:]], 1)
+    if sw is None:
+        return out
+    return warp_image(out, sw, width, height, plain=plain)
+
+
+def phase_iso_rows(rows, width, height, n_timed=2):
+    """Each iso row at full size, uncached and (where ``cached``) through
+    the camera cache of its volume part; returns the kernel frames."""
+    import torch
+
+    frames = {}
+    for name, row in rows.items():
+        cfg = row["cfg"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = launch_counts()
+
+        def frame(cache=None):
+            t0 = time.perf_counter()
+            out = render_iso(row, width, height, cache=cache)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        first, first_ms = frame()
+        rec = dict(row=name, frames_uncached_ms=[round(first_ms, 3)] + [
+            round(frame()[1], 3) for _ in range(n_timed)])
+        if row["cached"]:
+            cache = {}
+            cached0, prep_ms = frame(cache)
+            cached = [frame(cache) for _ in range(n_timed)]
+            rec["cache_first_frame_ms"] = round(prep_ms, 3)
+            rec["frames_cached_ms"] = [round(t, 3) for _, t in cached]
+            _, mx_c, _ = agree(first, cached[-1][0], frac=1.0)
+            rec["cached_vs_uncached_max_abs"] = mx_c
+            if mx_c > 1e-6:
+                raise SystemExit(f"{name}: cached frame differs by {mx_c}")
+        rec.update(
+            peak_mem_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
+            nslabs=cfg.nslabs, chunk=cfg.chunk, channels=cfg.num_channels,
+            colormap_channel=cfg.colormap_channel,
+            iso_value=float(row["fs"].iso_value[0]),
+            cells=row["meta"]["n_cells"])
+        if row["sw"] is not None:
+            rec["lattice"] = [row["sw"].width, row["sw"].height]
+        rec.update({f"{k}_launches": v - n0[k]
+                    for k, v in launch_counts().items()})
+        rec["volume_alpha_mean"] = float(first[:, 3].mean())
+        rec["lit_share"] = float((first[:, :3].amax(1) > 0.05).float().mean())
+        log("iso path:", json.dumps(rec))
+        if not bool(torch.isfinite(first).all()) or rec["lit_share"] < 0.02:
+            raise SystemExit(f"{name}: frame not finite or blank")
+        need = ["K1"] + (["K2a", "K2b"] if row["sw"] is not None else []) + (
+            ["K5"] if cfg.colormap_channel else [])
+        if min(rec[f"{k}_launches"] for k in need) <= 0:
+            raise SystemExit(f"{name}: launched none of some of {need}")
+        frames[name] = first
+    return frames
+
+
+def phase_iso_plain(rows, frames, width, height):
+    """Each iso row's kernel frame against its plain frame (plain K1, K5
+    and warp)."""
+    for name, row in rows.items():
+        t0 = time.perf_counter()
+        plain = render_iso(row, width, height, plain=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        ok, mx, share = agree(frames[name], plain)
+        log(f"iso path {name}: kernel vs plain frame max_abs={mx} "
+            f"share_within_1e-4={share:.6f} plain_frame_ms={ms:.1f}")
+        if not ok:
+            raise SystemExit(f"{name}: kernel frame disagrees with plain")
+
+
+def phase_renderer_iso(setups, tilted, n, width, height, device,
+                       n_frames=2):
+    """Progressive Renderer frames with an iso surface (the user's entry
+    point: ``RenderConfig(iso_surfaces=True)``, ``update_iso_values``),
+    aligned and through shear-warp, each finite and not blank."""
+    import torch
+
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    lower, level, scal = volume_to_cells(synthetic_volume(n), 0.004, 3)
+    iso = ISO_FRAC * setups["headline"][4]["value_max"]
+    for name, fs, tilt in (
+            ("renderer_iso", setups["headline"][2], False),
+            ("renderer_tilted_iso", tilted["headline_tilted"][2], True)):
+        r = Renderer((lower, level, scal[None]), width, height,
+                     cfg=RenderConfig(num_channels=1, iso_surfaces=True),
+                     frame_state=fs, device=device)
+        r.update_iso_values([iso, 0.0], [0, 0], [True, False])
+        r.enable_fast_path()
+        if (r._fast[2] == "shearwarp") != tilt:
+            raise SystemExit(f"{name}: Renderer took {r._fast[2]!r}")
+        times = []
+        for _ in range(n_frames):
+            t0 = time.perf_counter()
+            words = r.render()
+            torch.cuda.synchronize()
+            times.append(round((time.perf_counter() - t0) * 1e3, 3))
+        img = r.image_uint8(words)
+        lit = float((img[..., :3] > 16).any(-1).mean())
+        finite = bool(torch.isfinite(r.accum).all())
+        log("renderer:", json.dumps(dict(row=name, frames_ms=times,
+                                         lit_pixel_share=lit,
+                                         accum_finite=finite)))
+        if not finite or lit < 0.02:
+            raise SystemExit(f"{name}: Renderer frames not finite or blank")
+
+
+def capture_calls(module, attr, render):
+    """Run ``render()`` with ``module.attr`` wrapped; return the clones of
+    the tensor arguments of the call with the most elements in its
+    first argument."""
+    import torch
+
+    run = getattr(module, attr)
+    best = []
+
+    def spy(*args, **kw):
+        if not best or args[0].numel() > best[0][0].numel():
+            best[:] = [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args)]
+        return run(*args, **kw)
+
+    setattr(module, attr, spy)
+    try:
+        render()
+    finally:
+        setattr(module, attr, run)
+    if not best:
+        raise SystemExit(f"{attr} was not called")
+    return best[0]
+
+
+def k5_check(name, u, lut):
+    """K5 against its plain version and against the library's yardstick
+    (``grid_sample`` of the LUT as a (1, 4, 1, N) image, bilinear, zero
+    padding, align_corners: the same lerp), with device times from CUDA
+    graph replays (``graph_ms``; ``eager_ms``: CUDA events around eager
+    launches) and the bound of 20 bytes per element."""
+    import torch
+    import torch.nn.functional as F
+
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    k = torch.stack(PC.xf_classify_cuda(u, lut))
+    p = torch.stack(PC.xf_classify_reference(u, lut))
+    n = lut.shape[0]
+    img = lut.T.reshape(1, 4, 1, n).contiguous()
+    grid = torch.stack([u * (2.0 / (n - 1)) - 1.0, torch.zeros_like(u)],
+                       -1)[None].contiguous()
+
+    def library():
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib = library()[0]
+    torch.cuda.synchronize()
+    res = dict(name=name, shape=list(u.shape),
+               max_abs_err=float((k - p).abs().max()),
+               library_max_abs_err=float((lib - k).abs().max()),
+               ms=graph_ms(lambda: PC.xf_classify_cuda(u, lut)),
+               eager_ms=time_ms(lambda: PC.xf_classify_cuda(u, lut), 50),
+               plain_ms=time_ms(lambda: PC.xf_classify_reference(u, lut), 3,
+                                warmup=1),
+               library_ms=graph_ms(library),
+               library_eager_ms=time_ms(library, 50))
+    res["bound_ms"], res["bound_by"] = bound(nbytes(u, lut, k),
+                                             OPS_K5 * u.numel())
+    log("k5 check:", json.dumps(res))
+    if not bool(torch.isfinite(k).all()) or not res["max_abs_err"] <= TOL_XF:
+        raise SystemExit(f"K5 disagrees with its plain version on {name}: "
+                         f"{res['max_abs_err']}")
+    return res
+
+
+def k6_check(name, zvs, qx):
+    """K6 against its plain version and against the library's yardstick
+    (``grid_sample`` of (S, C+1, ny, nx), bilinear, zero padding,
+    align_corners, grid rows exactly at lattice rows: the same x tent),
+    with device times from CUDA graph replays as in ``k5_check`` and its
+    bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from owlexabrick_tpu_torch.render import mids as PM
+
+    k = PM.xresample_mids_cuda(zvs, qx)
+    p = PM.xresample_mids_reference(zvs, qx)
+    c1, s_, ny, nx = zvs.shape
+    w = qx.shape[1]
+    inp = zvs.transpose(0, 1).contiguous()  # (S, C+1, ny, nx)
+    gx = qx * (2.0 / max(nx - 1, 1)) - 1.0
+    gy = (torch.arange(ny, dtype=torch.float32, device=qx.device)
+          * (2.0 / max(ny - 1, 1)) - 1.0)
+    grid = torch.stack([gx[:, None, :].expand(s_, ny, w),
+                        gy[None, :, None].expand(s_, ny, w)], -1).contiguous()
+
+    def library():
+        return F.grid_sample(inp, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib = library().transpose(0, 1)
+    torch.cuda.synchronize()
+    res = dict(name=name, zvs_shape=list(zvs.shape), W=w,
+               max_abs_err=float((k - p).abs().max()),
+               library_max_abs_err=float((lib - k).abs().max()),
+               ms=graph_ms(lambda: PM.xresample_mids_cuda(zvs, qx)),
+               eager_ms=time_ms(lambda: PM.xresample_mids_cuda(zvs, qx), 50),
+               plain_ms=time_ms(lambda: PM.xresample_mids_reference(zvs, qx),
+                                3, warmup=1),
+               library_ms=graph_ms(library),
+               library_eager_ms=time_ms(library, 50))
+    res["bound_ms"], res["bound_by"] = bound(nbytes(zvs, qx, k),
+                                             OPS_K6 * k.numel())
+    log("k6 check:", json.dumps(res))
+    if not bool(torch.isfinite(k).all()) or not res["max_abs_err"] <= TOL_XF:
+        raise SystemExit(f"K6 disagrees with its plain version on {name}: "
+                         f"{res['max_abs_err']}")
+    return res
+
+
+def phase_k5_k6(iso_rows, setups, width, height, device):
+    """K5 and K6 against their plain versions and the library yardstick:
+    K5 on seeded texel coordinates at 1080p and on the colormap row's
+    real hit image; K6 on a seeded level block and on the largest level
+    block of one real uncached frame each of the headline and
+    blobs256."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import slabs
+
+    g = torch.Generator(device="cpu").manual_seed(55)
+    row = iso_rows["headline_2ch_iso_colormap"]
+    lut = torch.from_numpy(slabs.scaled_luts(row["fs"], 1)[0]).to(device)
+    u = (127.0 * torch.rand((height, width), generator=g)).to(device)
+    k5 = [k5_check("seeded_1080p", u, lut)]
+    u_real, lut_real = capture_calls(
+        slabs, "xf_classify", lambda: render_iso(row, width, height))[:2]
+    k5.append(k5_check("headline_2ch_iso_colormap_hits", u_real, lut_real))
+
+    s_, ny, nx = 12, 80, 80
+    zvs = torch.rand((2, s_, ny, nx), generator=g).to(device)
+    cols = torch.arange(width, dtype=torch.float32) * ((nx + 4.0) / width)
+    qx = (cols[None] * (1.0 + 0.01 * torch.arange(s_)[:, None]) - 2.0).to(
+        device).contiguous()
+    k6 = [k6_check("seeded_level_block", zvs, qx)]
+    for name in ("headline", "blobs256"):
+        zvs_r, qx_r = capture_calls(
+            slabs, "xresample_mids",
+            lambda: render_row(setups[name], width, height))[:2]
+        k6.append(k6_check(f"{name}_largest_level", zvs_r, qx_r))
+    return k5, k6
+
+
 def phase_profile(setups, width, height, render=render_row,
                   modes=("uncached", "cached"), traces=True):
     """With ``--profile``: trace one frame per row and mode (uncached,
@@ -899,11 +1303,20 @@ def phase_profile(setups, width, height, render=render_row,
                     rows.append((dev_us, e.count, e.key[:60]))
             rows.sort(reverse=True)
             dev_ms = sum(r[0] for r in rows) / 1e3
+            ours = {}
+            for us, n, k in rows:
+                tag = next((t for f, t in PORT_KERNELS.items() if f in k),
+                           None)
+                if tag:
+                    ms0, n0 = ours.get(tag, (0.0, 0))
+                    ours[tag] = (ms0 + us / 1e3, n0 + n)
             log("profile:", json.dumps(dict(
                 row=name, mode=mode, frame_wall_ms=round(wall_ms, 3),
                 device_ms=round(dev_ms, 3),
                 device_busy_share=round(dev_ms / wall_ms, 4),
                 device_launches=sum(r[1] for r in rows),
+                port_kernels={t: dict(ms=round(ms, 3), n=n)
+                              for t, (ms, n) in sorted(ours.items())},
                 top=[dict(kernel=k, ms=round(us / 1e3, 3), n=n)
                      for us, n, k in rows[:8]])))
 
@@ -911,6 +1324,7 @@ def phase_profile(setups, width, height, render=render_row,
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
@@ -958,18 +1372,20 @@ def main() -> int:
     frames = phase_rows(setups, width, height)
     aligned = launch_counts()
     log("launches on the aligned path:", json.dumps(aligned))
-    if aligned["K1"] <= 0:
-        raise SystemExit("the aligned path launched K1 no time")
+    if min(aligned[k] for k in ("K1", "K6")) <= 0:
+        raise SystemExit(f"the aligned path left a kernel unlaunched: "
+                         f"{aligned}")
     reset_launch_counts()
     frames.update(phase_rows(tilted, width, height))
     phase_renderer(tilted["headline_tilted"], 64, width, height, dev)
     tilt = launch_counts()
     log("launches on the tilted path:", json.dumps(tilt))
-    if min(tilt[k] for k in ("K1", "K2a", "K2b")) <= 0:
+    if min(tilt[k] for k in ("K1", "K2a", "K2b", "K6")) <= 0:
         raise SystemExit(f"the tilted path left a kernel unlaunched: {tilt}")
 
     rows = {**setups, **tilted}
     phase_plain(rows, frames, width, height)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     lanes = lane_setups(setups, tilted, dev)
     xf = phase_xf(lanes, width, height, dev)
@@ -982,28 +1398,48 @@ def main() -> int:
         raise SystemExit(f"the einsum path left a kernel unlaunched: "
                          f"{einsum}")
     phase_lane_plain(lanes, lane_frames, width, height)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    iso_rows = iso_setups(setups, tilted, lanes)
+    k5, k6 = phase_k5_k6(iso_rows, setups, width, height, dev)
+    reset_launch_counts()
+    iso_frames = phase_iso_rows(iso_rows, width, height)
+    phase_renderer_iso(setups, tilted, 64, width, height, dev)
+    iso = launch_counts()
+    log("launches on the iso path:", json.dumps(iso))
+    if min(iso[k] for k in ("K1", "K2a", "K2b", "K5", "K6")) <= 0:
+        raise SystemExit(f"the iso path left a kernel unlaunched: {iso}")
+    phase_iso_plain(iso_rows, iso_frames, width, height)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
         # no Chrome traces: a 1080p einsum-lane frame's is tens of MB
         phase_profile(lanes, width, height, modes=("uncached",),
                       render=lambda row, w, h, cache: render_lane(row, w, h),
                       traces=False)
+        phase_profile(iso_rows, width, height, render=render_iso,
+                      modes=("uncached",), traces=False)
 
     timed = next(r for r in k1 if r["name"] == "headline_seeded_knots")
     k2_rows = next(r for r in k2 if r["channels"] == 4)
     xf_real = next(r for r in xf if r["name"] == "headline_clip_real_chunk")
+    k5_real = next(r for r in k5 if r["name"].endswith("_hits"))
+    k6_real = next(r for r in k6 if r["name"].startswith("headline_"))
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
     src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
-    launches = {k: aligned[k] + tilt[k] + einsum[k] for k in aligned}
+    launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k]
+                for k in aligned}
 
     def entry(name, source, replaces, key, err, res, prefix=""):
-        # no single PyTorch call computes any of these functions
+        # one PyTorch call computes K5's and K6's functions (grid_sample),
+        # none computes K1's to K4's
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches[key],
                     max_abs_err=err, ms=res[prefix + "ms"],
                     plain_ms=res[prefix + "plain_ms"],
                     bound_ms=res[prefix + "bound_ms"],
-                    bound_by=res[prefix + "bound_by"], library_ms=None)
+                    bound_by=res[prefix + "bound_by"],
+                    library_ms=res.get(prefix + "library_ms"))
 
     log(json.dumps({"kernels": [
         entry("K1 slab-sweep megakernel",
@@ -1020,6 +1456,11 @@ def main() -> int:
               xf_real, "k3_"),
         entry("K4 classify a field per slab", src_xf, K4_REPLACES, "K4",
               max(r["k4_max_abs_err"] for r in xf), xf_real, "k4_"),
+        entry("K5 LUT lookup (iso colormap recolor)", src_xf, K5_REPLACES,
+              "K5", max(r["max_abs_err"] for r in k5), k5_real),
+        entry("K6 x-tent resample of a level's mids",
+              "owlexabrick_tpu_torch/csrc/mids.cu", K6_REPLACES, "K6",
+              max(r["max_abs_err"] for r in k6), k6_real),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

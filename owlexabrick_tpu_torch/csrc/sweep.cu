@@ -9,7 +9,12 @@
 // the dense range-limited 128-texel loop), the opacity correction
 // (1-exp(-tau*e) for optical-depth channels, else 1-(1-a)^e with
 // e = dz*w_s*sec), the channel merge, and the front-to-back composite
-// with an absolute-transmittance carry.  Its plain-torch twin is
+// with an absolute-transmittance carry.  With a surface stop (has_stop,
+// the TPU kernel's t_slab/t_stop refs, pallas_sweep.py:247-249, tested at
+// :510-511, :618-619, :660-663) a sample counts only where the slab's
+// sweep parameter t_slab[s] lies strictly before the pixel's t_stop: the
+// iso or geometry hit caps the volume interval (integrateVolume's
+// t1 = min(t1, surface t)).  Its plain-torch twin is
 // render/sweep.py::sweep_chunk_reference.
 //
 // What bounds it on this card: every active (slab, pixel) reads two
@@ -55,7 +60,7 @@ struct Params {
   float cw[kMaxLevels];
   float orgy_half[kMaxLevels];  // lattice y origin + 0.5 (exact)
   int n_levels, n_ch, S, H, W, tr, tc, n_rt, n_ct;
-  int compressed, n_texels, m_knots, tau_mask, has_pt;
+  int compressed, n_texels, m_knots, tau_mask, has_pt, has_stop;
   float dz;
   const float* ypos;     // (S, H)
   const float* sec;      // (H, W)
@@ -63,6 +68,8 @@ struct Params {
   const float* act;      // (S, R, Ct)
   const float* act_all;  // (R, Ct)
   const float* prev_t;   // (H, W) or null
+  const float* t_slab;   // (S,) or null: each slab's sweep parameter
+  const float* t_stop;   // (H, W) or null: per-pixel stop parameter
   const float* dom;      // (C, 2)
   const float* kpos;     // (C, M)
   const float* ksd;      // (C, M, 4)
@@ -190,7 +197,9 @@ sweep_kernel(const Params p) {
             swv[c] = swv[c] + wk * __ldg(r + c * cstride);
         }
       }
-      const bool ok = sw > 1e-20f;
+      // the stop is strict: a slab exactly at the surface does not count
+      const bool ok = sw > 1e-20f &&
+                      (!p.has_stop || p.t_slab[s] < p.t_stop[idx]);
       const float denom = ok ? sw : 1.f;
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
@@ -309,16 +318,16 @@ sweep_kernel(const Params p) {
 // Plain C entry point (bound with ctypes).  Argument packs:
 //   ptrs: ypos, sec, live, act, act_all, prev_t (or 0), dom, kpos, ksd,
 //         kbase, kcum, lut, dlut, scratch_u, out_r, out_g, out_b, out_t,
-//         then one mids pointer per level
+//         t_slab (or 0), t_stop (or 0), then one mids pointer per level
 //   ints: n_levels, n_ch, S, H, W, tr, tc, compressed, n_texels, m_knots,
-//         tau_mask, has_pt, then ny per level
+//         tau_mask, has_pt, has_stop, then ny per level
 //   flts: dz, then cw per level, then lattice y origin per level
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
                                const int* ints, int n_ints,
                                const float* flts, int n_flts,
                                void* stream) {
-  if (n_ints < 12) return (int)cudaErrorInvalidValue;
+  if (n_ints < 13) return (int)cudaErrorInvalidValue;
   Params p = {};
   p.n_levels = ints[0];
   p.n_ch = ints[1];
@@ -332,19 +341,20 @@ extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
   p.m_knots = ints[9];
   p.tau_mask = ints[10];
   p.has_pt = ints[11];
+  p.has_stop = ints[12];
   const int L = p.n_levels;
   if (L < 1 || L > kMaxLevels || p.n_ch < 1 || p.n_ch > kMaxCh ||
-      n_ints != 12 + L || n_flts != 1 + 2 * L || n_ptrs != 18 + L ||
+      n_ints != 13 + L || n_flts != 1 + 2 * L || n_ptrs != 20 + L ||
       p.tr < 1 || p.tc < 1 || p.n_texels < 2)
     return (int)cudaErrorInvalidValue;
   p.n_rt = (p.H + p.tr - 1) / p.tr;
   p.n_ct = (p.W + p.tc - 1) / p.tc;
   p.dz = flts[0];
   for (int l = 0; l < L; ++l) {
-    p.ny[l] = ints[12 + l];
+    p.ny[l] = ints[13 + l];
     p.cw[l] = flts[1 + l];
     p.orgy_half[l] = flts[1 + L + l] + 0.5f;
-    p.mids[l] = (const float*)ptrs[18 + l];
+    p.mids[l] = (const float*)ptrs[20 + l];
   }
   p.ypos = (const float*)ptrs[0];
   p.sec = (const float*)ptrs[1];
@@ -364,7 +374,11 @@ extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
   p.out_g = (float*)ptrs[15];
   p.out_b = (float*)ptrs[16];
   p.out_t = (float*)ptrs[17];
+  p.t_slab = (const float*)ptrs[18];
+  p.t_stop = (const float*)ptrs[19];
   if (p.has_pt && !p.prev_t) return (int)cudaErrorInvalidValue;
+  if (p.has_stop && !(p.t_slab && p.t_stop))
+    return (int)cudaErrorInvalidValue;
   if (p.compressed ? !(p.kpos && p.ksd && p.kbase && p.kcum)
                    : !(p.lut && p.dlut))
     return (int)cudaErrorInvalidValue;

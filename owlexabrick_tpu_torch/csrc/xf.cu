@@ -1,11 +1,12 @@
-// K3 and K4 for Hopper: transfer-function classification of the einsum
-// lane's reconstructed slab fields.
+// K3, K4 and K5 for Hopper: transfer-function classification of the
+// einsum lane's reconstructed slab fields, and the stand-alone LUT lookup.
 //
 // Replaces the TPU kernels owlexabrick_tpu/render/pallas_xf.py
-// _composite_chunk_kernel (:178, pallas_call :293, K3) and
-// _classify_field_kernel (:46, pallas_call :155, K4).  Their plain-torch
-// twins are render/classify.py::composite_chunk_reference and
-// classify_field_reference.
+// _composite_chunk_kernel (:178, pallas_call :293, K3),
+// _classify_field_kernel (:46, pallas_call :155, K4) and _xf_kernel
+// (:24, pallas_call :329 in xf_classify, K5).  Their plain-torch twins
+// are render/classify.py::composite_chunk_reference,
+// classify_field_reference and xf_classify_reference.
 //
 //   K4: per (slab, pixel): value = swv/sw (invalid where sw <= 1e-20),
 //       texel coordinate, LUT rgba, a = 1-(1-a)^(dz*sec), a = 0 where
@@ -13,6 +14,10 @@
 //   K3: the same classification per slab, the live[s] gate, and the
 //       front-to-back composite over the chunk's S slabs; out
 //       premultiplied r, g, b and the transmittance T, each (H, W).
+//   K5: per element of u (R, C), clamped texel coordinates in [0, N-1]:
+//       the LUT's r, g, b, a at u; out four (R, C) planes.  The iso
+//       path's colormap recolor (render_slabs_iso, colormap_channel != 0)
+//       calls it once per frame on the hit image.
 //
 // The TPU kernels walked the knots between each (8 x tc) tile's least and
 // greatest texel coordinate, with the LUT differences in SMEM.  For one
@@ -30,7 +35,11 @@
 // the slabs with its r, g, b, T in registers and live[] in shared
 // memory; neighbouring threads take neighbouring pixels, so every read
 // and write is coalesced.  K3 skips a dead slab's reads: a = 0 there,
-// which adds exactly nothing.
+// which adds exactly nothing.  K5 (the TPU kernel summed 127 clamp ramps
+// per element) reads 4 bytes and writes 16 per element: its bound is
+// 20 B per element over 3.35 TB/s.  One thread per element lerps the
+// 2 KB LUT in shared memory, as K3/K4 do, with coalesced reads of u and
+// writes of the four planes.
 //
 // Built with -fmad=false so each multiply and add rounds like the plain
 // torch version's separate ops; the kernels allocate nothing and launch
@@ -153,6 +162,28 @@ composite_chunk_kernel(const float* __restrict__ sw,
   out[3 * p.hw + px] = t;
 }
 
+// K5: grid ceil(count / kThreads); out (4, count): r, g, b, a planes
+__global__ void __launch_bounds__(kThreads)
+xf_classify_kernel(const float* __restrict__ u,
+                   const float* __restrict__ lut, float* __restrict__ out,
+                   long long count, int n) {
+  __shared__ float4 s_lut[kMaxTexels];
+  load_lut(lut, n, s_lut);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= count) return;
+  const float x = u[i];
+  // u lies in [0, n-1]; the clamp keeps a stray value inside the LUT
+  const int k = max(min((int)floorf(x), n - 2), 0);
+  const float f = x - (float)k;
+  const float4 a = s_lut[k];
+  const float4 b = s_lut[k + 1];
+  out[i] = a.x + f * (b.x - a.x);
+  out[count + i] = a.y + f * (b.y - a.y);
+  out[2 * count + i] = a.z + f * (b.z - a.z);
+  out[3 * count + i] = a.w + f * (b.w - a.w);
+}
+
 bool make_params(int S, int H, int W, int n, float lo, float hi, float dz,
                  XfParams* p) {
   if (S < 1 || H < 1 || W < 1 || n < 2 || n > kMaxTexels) return false;
@@ -200,5 +231,18 @@ extern "C" int owx_composite_chunk(const void* sw, const void* swv,
   composite_chunk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)sw, (const float*)swv, (const float*)sec,
       (const float*)live, (const float*)lut, (float*)out, p);
+  return (int)cudaGetLastError();
+}
+
+// K5: u (count,) clamped texel coordinates in [0, n-1], lut (n, 4), out
+// (4, count), all float32 contiguous.  Returns the launch's cudaError_t.
+extern "C" int owx_xf_classify(const void* u, const void* lut, void* out,
+                               long long count, int n, void* stream) {
+  if (!u || !lut || !out || count < 1 || n < 2 || n > kMaxTexels ||
+      (count + kThreads - 1) / kThreads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((count + kThreads - 1) / kThreads);
+  xf_classify_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)u, (const float*)lut, (float*)out, count, n);
   return (int)cudaGetLastError();
 }

@@ -135,6 +135,11 @@ def load():
         lib.owx_composite_chunk.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                             ci, ci, cf, cf, cf, vp]
         lib.owx_composite_chunk.restype = ci
+        lib.owx_xf_classify.argtypes = [vp, vp, vp, ll, ci, vp]
+        lib.owx_xf_classify.restype = ci
+        lib.owx_xresample_mids.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
+                                           vp]
+        lib.owx_xresample_mids.restype = ci
         lib.owx_error_string.argtypes = [ci]
         lib.owx_error_string.restype = ctypes.c_char_p
         _lib = lib

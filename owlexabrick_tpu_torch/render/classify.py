@@ -1,6 +1,6 @@
-"""Transfer-function classification of reconstructed slab fields (the
-port of ``owlexabrick_tpu/render/pallas_xf.py``): the einsum lane's two
-kernels.
+"""Transfer-function classification (the port of
+``owlexabrick_tpu/render/pallas_xf.py``): the einsum lane's two kernels
+and the stand-alone LUT lookup.
 
 * K3, ``composite_chunk``: value = swv/sw, classification, opacity
   correction, the ``live`` gate and the front-to-back composite over a
@@ -9,6 +9,8 @@ kernels.
 * K4, ``classify_field``: the same classification and opacity per
   (slab, pixel), no composite: r, g, b, a, each (S, H, W), a = 0 where
   the sample is invalid.  The multi-channel and gradient-shading lanes.
+* K5, ``xf_classify``: the LUT's r, g, b, a at clamped texel
+  coordinates u (R, C).  The iso path's colormap recolor.
 
 Each has a plain-torch version (``*_reference``), a launcher of the
 hand-written Hopper kernel in ``csrc/xf.cu`` (``*_cuda``, counting its
@@ -18,9 +20,9 @@ version, CUDA tensors launch the kernel or raise, and ``plain=True``
 version on the card.
 
 The TPU kernels walked the knots between a tile's least and greatest
-texel coordinate; for one pixel that walk telescopes to a lerp of the
-LUT at k = min(floor(u), N-2), which both versions here evaluate (they
-differ from the walk only in rounding).
+texel coordinate (K5: all N-1 of them); for one pixel that walk
+telescopes to a lerp of the LUT at k = min(floor(u), N-2), which both
+versions here evaluate (they differ from the walk only in rounding).
 """
 
 from __future__ import annotations
@@ -205,3 +207,57 @@ def composite_chunk(sw, swv, sec, live, lut, domain, dz,
     fn = (composite_chunk_reference if plain or sw.device.type == "cpu"
           else composite_chunk_cuda)
     return fn(sw, swv, sec, live, lut, domain, dz)
+
+
+def xf_classify_reference(u: torch.Tensor, lut: torch.Tensor):
+    """Plain-torch K5: the same arithmetic as ``csrc/xf.cu``'s
+    xf_classify_kernel.  u: (R, C) clamped texel coordinates in
+    [0, N-1]; lut: (N, 4).  Returns (r, g, b, a), each (R, C): the LUT
+    lerped at u, lut[k] + f * (lut[k+1] - lut[k]) with k = min(floor(u),
+    N-2), f = u - k (the TPU kernel's sum of N-1 clamp ramps telescopes
+    to this lerp, up to rounding)."""
+    n = int(lut.shape[0])
+    k = torch.clamp(torch.floor(u).to(torch.int64), 0, n - 2)
+    f = u - k.to(torch.float32)
+    out = []
+    for c in range(4):
+        col = lut[:, c]
+        out.append(col[k] + f * (col[1:] - col[:-1])[k])
+    return tuple(out)
+
+
+def xf_classify_cuda(u: torch.Tensor, lut: torch.Tensor):
+    """Launch K5 (``csrc/xf.cu``) on the current stream.  Same arguments
+    and result as ``xf_classify_reference``.  Raises on any input the
+    kernel does not take; never falls back."""
+    from .. import kernels
+
+    dev = u.device
+    if dev.type != "cuda":
+        raise ValueError(f"xf_classify_cuda needs CUDA tensors, got {dev}")
+    if u.dim() != 2:
+        raise ValueError(f"u: need (R, C), got {tuple(u.shape)}")
+    n = int(lut.shape[0])
+    if not 2 <= n <= kernels.MAX_TEXELS:
+        raise ValueError(f"{n} LUT texels; K5 takes 2..{kernels.MAX_TEXELS}")
+    kernels.check_tensor("u", u, dev, tuple(u.shape))
+    kernels.check_tensor("lut", lut, dev, (n, 4))
+    out = torch.empty((4,) + tuple(u.shape), dtype=torch.float32, device=dev)
+    vp = ctypes.c_void_p
+    kernels.launch("owx_xf_classify", "K5", vp(u.data_ptr()),
+                   vp(lut.data_ptr()), vp(out.data_ptr()), u.numel(), n,
+                   kernels.stream_arg(dev))
+    xf_classify_cuda.launches += 1
+    return out[0], out[1], out[2], out[3]
+
+
+xf_classify_cuda.launches = 0
+
+
+def xf_classify(u: torch.Tensor, lut: torch.Tensor, plain: bool = False):
+    """K5 for CUDA tensors, the plain version for CPU tensors (or
+    anywhere when ``plain``): the (N, 4) LUT at texel coordinates u
+    (R, C), as (r, g, b, a) (``pallas_xf.xf_classify``)."""
+    fn = (xf_classify_reference if plain or u.device.type == "cpu"
+          else xf_classify_cuda)
+    return fn(u, lut)

@@ -7,10 +7,13 @@ the two-pass warp), and a frustum no axis can factorize through the
 ``reorient_grids`` preview.  The clip box (``set_clip_box``) and DVR
 gradient shading (``RenderConfig.gradient_shading_dvr``) take the
 sweep's einsum lane; the clip box becomes a per-pixel sweep interval
-(``clip_interval``).
+(``clip_interval``).  Iso surfaces (``RenderConfig.iso_surfaces``,
+``update_iso_values``) take the iso sweep (``render_slabs_iso_camera``):
+its shaded hits are the background and its hit depth stops the volume
+(K1's surface stop).
 
-Not ported yet (each raises NotImplementedError): surfaces, iso
-surfaces, contour planes, AO, and the exact wavefront path.
+Not ported yet (each raises NotImplementedError): meshes and
+streamlines, contour planes, AO, and the exact wavefront path.
 """
 
 from __future__ import annotations
@@ -35,19 +38,23 @@ from .slabs import (
     principal_axis,
     render_device,
     render_slabs_camera,
+    render_slabs_iso_camera,
     reorient_grids,
 )
 
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """The fields of the JAX package's ``RenderConfig`` that the aligned
-    DVR path reads (same names and defaults)."""
+    """The fields of the JAX package's ``RenderConfig`` that the slab
+    fast path reads (same names and defaults)."""
 
     num_channels: int = 1
     gradient_shading_dvr: bool = False
+    gradient_shading_iso: bool = True
     iso_surfaces: bool = False
     ao_samples: int = 0
+    # secondary field that colormaps iso surfaces (LaunchParams.h:59-60)
+    colormap_channel: int = 0
     # adaptive z-stride on the slab fast path (exabrick.cu:1129)
     adaptive_stride: bool = True
 
@@ -104,22 +111,25 @@ def sweep_rays_world(axis: int, cam: Camera, lattice, width: int,
 
 def clip_interval(axis: int, cam: Camera, lattice, width: int, height: int,
                   voxel_from_world, eye_world, clip_lo, clip_hi,
-                  device="cuda"):
+                  device="cuda", t_stop=None):
     """The clip box's sweep interval per pixel of a render (the JAX
     Renderer's clip, renderer.py:801-817; clipRay, exabrick.cu:
     1258-1264): the world rays of ``sweep_rays_world`` from
     ``eye_world`` against the world-space box [clip_lo, clip_hi] over
-    [0, 2e10], as sweep parameters.  Returns (t_start, t_stop), each (P,)
-    float32 on ``device``: inf and 0 where a ray misses the box."""
+    [0, 2e10], or over [0, t_stop * |r_w|] where a surface's (P,) sweep
+    parameter ``t_stop`` already ends the volume, as sweep parameters.
+    Returns (t_start, t_stop), each (P,) float32 on ``device``: inf and
+    0 where a ray misses the box."""
     dev = render_device(device)
     d_unit, rnorm = sweep_rays_world(axis, cam, lattice, width, height,
                                      voxel_from_world, dev)
     p = rnorm.shape[0]
+    t_end = (torch.full((p,), 2e10, dtype=torch.float32, device=dev)
+             if t_stop is None else torch.as_tensor(t_stop).to(dev) * rnorm)
     hit, c0, c1 = ray_box(_f32s(eye_world, dev), d_unit,
                           _f32s(clip_lo, dev), _f32s(clip_hi, dev),
                           torch.zeros(p, dtype=torch.float32, device=dev),
-                          torch.full((p,), 2e10, dtype=torch.float32,
-                                     device=dev))
+                          t_end)
     t_start = torch.where(hit, c0, float("inf")) / rnorm
     t_stop = torch.where(hit, c1, 0.0) / rnorm
     return t_start, t_stop
@@ -198,6 +208,13 @@ class Renderer:
             xf_opacity_scale=np.float32(opacity_scale))
         self.reset_accumulation()
 
+    def update_iso_values(self, values, channels, enabled):
+        self.fs = dataclasses.replace(
+            self.fs, iso_value=np.asarray(values, np.float32),
+            iso_channel=np.asarray(channels, np.int32),
+            iso_enabled=np.asarray(enabled, bool))
+        self.reset_accumulation()
+
     def set_clip_box(self, enabled: bool, lo=None, hi=None):
         """Enable or disable the world-space clip box [lo, hi] (each
         kept when None)."""
@@ -226,8 +243,6 @@ class Renderer:
 
     def _check_supported(self):
         cfg, fs = self.cfg, self.fs
-        if cfg.iso_surfaces or bool(np.any(fs.iso_enabled)):
-            raise NotImplementedError("iso surfaces are not ported yet")
         if cfg.ao_samples > 0 or bool(fs.ao_enabled):
             raise NotImplementedError("ambient occlusion is not ported yet")
         if bool(np.any(fs.contour_enabled)):
@@ -241,7 +256,15 @@ class Renderer:
         nslabs = int(np.ceil(extent / (float(self.fs.dt) * finest)))
         return SlabConfig(num_channels=self.cfg.num_channels, nslabs=nslabs,
                           gradient_shading_dvr=self.cfg.gradient_shading_dvr,
+                          gradient_shading_iso=self.cfg.gradient_shading_iso,
+                          colormap_channel=self.cfg.colormap_channel,
                           adaptive_stride=self.cfg.adaptive_stride)
+
+    @staticmethod
+    def _grid_to_voxel_normals(n_grid: torch.Tensor, axis: int):
+        """(P, 3) grid-frame (z, y, x) normals -> voxel (x, y, z)."""
+        perm = (axis, *[a for a in (2, 1, 0) if a != axis])
+        return torch.stack([n_grid[:, perm.index(a)] for a in range(3)], 1)
 
     def enable_fast_path(self) -> bool:
         """Switch to the slab-sweep path: an axis-aligned camera sweeps
@@ -349,17 +372,33 @@ class Renderer:
         self._last_pose = pose
         self._last_pose_grids = grids
 
+        bg = torch.zeros(3, dtype=torch.float32, device=self.device)
         t_start = t_stop = None
+        if self.cfg.iso_surfaces:
+            # the iso sweep: its shaded hits are the background and its
+            # hit depth caps the volume interval (integrateVolume
+            # t1 = min(t1, surface t), exabrick.cu:1675-1680)
+            want_n = self.cfg.gradient_shading_iso
+            out = render_slabs_iso_camera(grids, self.fs, scfg, cam, rw, rh,
+                                          lattice=lattice,
+                                          return_normals=want_n)
+            iso_rgba, t_stop = out[0], out[1]
+            bg = iso_rgba[:, :3] * iso_rgba[:, 3:4]
+            if want_n:
+                # raygen surface shading (exabrick.cu:1644-1650): the
+                # shaded base color scaled by |dir . Ng| where Ng exists
+                n_vox = self._grid_to_voxel_normals(out[2], grids.axis)
+                has_n = torch.linalg.norm(n_vox, dim=-1) > 0.0
+                bg = torch.where(has_n[:, None], bg * out[3][:, None], bg)
         if bool(self.fs.clip_enabled):
             # the clip box shrinks the volume interval only (clipRay)
             t_start, t_stop = clip_interval(
                 grids.axis, cam, lattice, rw, rh, self.voxel_from_world,
                 self.fs.cam_pos, self.fs.clip_lo, self.fs.clip_hi,
-                self.device)
+                self.device, t_stop=t_stop)
         rgba = render_slabs_camera(grids, self.fs, scfg, cam, rw, rh,
                                    camera_cache=cam_cache, lattice=lattice,
                                    t_start=t_start, t_stop=t_stop)
-        bg = torch.zeros(3, dtype=torch.float32, device=self.device)
         color = composite_background(rgba, bg)
         if shear is not None:
             # one screen-space homography warp finishes the frame

@@ -1,7 +1,7 @@
 """Slab-sweep DVR for axis-aligned cameras and shear-warp lattice
 cameras (the port of ``owlexabrick_tpu/render/slabs.py``: the megakernel
-lane and the einsum lane), and the ``reorient_grids`` preview for
-frusta no axis can factorize.
+lane, the einsum lane and the iso sweep), and the ``reorient_grids``
+preview for frusta no axis can factorize.
 
 The AMR field is held as dense per-level voxel grids (value + cell mask);
 summing tent-weighted contributions over levels is exactly the exa-brick
@@ -9,9 +9,11 @@ basis reconstruction (exabrick.cu:620-816).  The volume is swept in
 axis-aligned slabs along the camera's principal axis; for a camera whose
 image plane is perpendicular to that axis, resampling a level onto the
 pixel grid is separable.  Per chunk of slabs the camera products are a
-2-tap z lerp and a 2-tap x lerp of every level into per-level "mids"
-(S, ny, W) (plain torch); the sweep kernel (``sweep.run_chunk``, K1 on the
-card) does the y lerp, classification and front-to-back compositing.
+2-tap z lerp (plain torch) and a 2-tap x lerp (K6 on the card,
+``render/mids.py``) of every level into per-level "mids" (S, ny, W); the
+sweep kernel (``sweep.run_chunk``, K1 on the card) does the y lerp,
+classification and front-to-back compositing, up to a per-pixel surface
+stop ``t_stop``.
 
 The einsum lane serves what the megakernel cannot: the clip box's
 per-pixel interval start ``t_start`` and DVR gradient shading.  Per
@@ -21,6 +23,11 @@ the JAX package left them to XLA), then classifies them with K3 (one
 channel, composited in the kernel) or K4 (per channel, followed by the
 headlight shading, the channel merge and a cumprod composite in torch),
 ``render/classify.py``.
+
+The iso sweep (``render_slabs_iso``) rebuilds the fields and their
+gradients per batch of active slabs in the JAX package's z, y, x order
+and scans for iso crossings slab by slab (plain torch); its colormap
+recolor is K5.  Its hit depth is the volume's ``t_stop``.
 
 Host-side pieces (level-grid construction, knot compression, camera
 separability, y crop, window hints, chunk depth) are numpy, as in the
@@ -37,8 +44,14 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.constants import TERMINATION_THRESHOLD
-from .classify import classify_field, composite_chunk
+from ..core.constants import NUM_XF_VALUES, TERMINATION_THRESHOLD
+from .classify import (
+    classify_field,
+    composite_chunk,
+    texel_coord,
+    xf_classify,
+)
+from .mids import tent_taps, xresample_mids
 from .sweep import (
     combine_activity,
     pack_luts,
@@ -626,8 +639,16 @@ class SlabConfig:
     # DVR headlight gradient shading (integrateVolume,
     # exabrick.cu:1004-1010); takes the einsum lane
     gradient_shading_dvr: bool = False
+    # iso shading (render_slabs_iso): analytic basis gradients,
+    # .3 + .7|N.L| (gradientShadingISO, exabrick.cu:1060-1073); False =
+    # the unshaded TF color, like the reference
+    gradient_shading_iso: bool = True
+    # secondary channel that recolors iso hits through the channel-0 LUT
+    # (LaunchParams colormapChannel, exabrick.cu:1079-1085); 0 = off
+    colormap_channel: int = 0
     # run the plain-torch versions of the kernels even for CUDA tensors:
-    # the sweep (K1), the einsum lane's classification (K3, K4) and, in
+    # the sweep (K1), the einsum lane's classification (K3, K4), the
+    # camera products' x stage (K6), the iso colormap lookup (K5) and, in
     # render_slabs_shearwarp, the two-pass warp (K2a, K2b).  The explicit
     # comparison lane for the kernels, never chosen implicitly
     plain_sweep: bool = False
@@ -777,25 +798,6 @@ def _f32(v, device) -> torch.Tensor:
     return torch.tensor(np.float32(v), device=device)
 
 
-def _two_taps(q: torch.Tensor, n: int):
-    """The two lattice points k0 = floor(q), k0 + 1 a tent at q reaches on
-    an axis of ``n`` points: their clamped indices, their tent weights
-    max(0, 1 - |q - k|) (the JAX package's ``_tent_matrix`` entries) and
-    their derivative weights -1, +1 (``_dtent_matrix``, half-open
-    support); a point outside [0, n-1] is absent (weights 0)."""
-    kf = torch.floor(q)
-    k0 = kf.to(torch.int64)
-    in0 = (k0 >= 0) & (k0 < n)
-    in1 = (k0 + 1 >= 0) & (k0 + 1 < n)
-    w0 = torch.where(in0, torch.clamp(1.0 - torch.abs(q - kf), min=0.0), 0.0)
-    w1 = torch.where(in1, torch.clamp(1.0 - torch.abs(q - (kf + 1.0)),
-                                      min=0.0), 0.0)
-    d0 = torch.where(in0, -1.0, 0.0)
-    d1 = torch.where(in1, 1.0, 0.0)
-    return ((torch.clamp(k0, 0, n - 1), torch.clamp(k0 + 1, 0, n - 1)),
-            (w0, w1), (d0, d1))
-
-
 def ray_components(cam_dir00, cam_du, cam_dv, width: int, height: int,
                    device, lattice=None):
     """Separable ray components in the grid frame, r(i, j) = dir00 +
@@ -836,6 +838,14 @@ def scaled_luts(fs, num_channels: int):
             for c in range(num_channels)]
 
 
+def xf_texel_coord(value: torch.Tensor, domain,
+                   n: int = NUM_XF_VALUES) -> torch.Tensor:
+    """value -> clamped texel coordinate in [0, n-1] (lookup_xf,
+    exabrick.cu:136-150); ``domain``: the channel's (2,) TF domain."""
+    lo, hi = np.asarray(domain, np.float32).reshape(2)
+    return texel_coord(value, lo, hi, n)
+
+
 def _lerp_z(vol, idx, wts):
     """(nz, ny, nx) -> (S, ny, nx): two z planes per slab, weighted."""
     return (wts[0][:, None, None] * vol.index_select(0, idx[0])
@@ -862,6 +872,25 @@ def _lerp_y(xl, idx, wts, height: int):
         return wts[t][:, :, None] * torch.gather(xl, 1, rows)
 
     return tap(0) + tap(1)
+
+
+def _level_occupancy(grids: LevelGrids, z_planes: torch.Tensor):
+    """Per level, (nslabs,) bool on the host: whether a cell of the level
+    lies on either z tap of each slab plane (levels that fail add exactly
+    0 to the slab's fields and are skipped)."""
+    lvl_occ = []
+    for li, L in enumerate(grids.levels):
+        cw = float(1 << L)
+        occz = grids.masks[li].amax(dim=(1, 2)).cpu()
+        nz = occz.shape[0]
+        qz = z_planes / cw - _f32(grids.origins[li][0], "cpu") - 0.5
+        k0 = torch.floor(qz).to(torch.int64)
+        o0 = torch.where((k0 >= 0) & (k0 < nz),
+                         occz[torch.clamp(k0, 0, nz - 1)], 0.0)
+        o1 = torch.where((k0 + 1 >= 0) & (k0 + 1 < nz),
+                         occz[torch.clamp(k0 + 1, 0, nz - 1)], 0.0)
+        lvl_occ.append((o0 + o1) > 0.0)
+    return lvl_occ
 
 
 class _EinsumLane:
@@ -922,10 +951,10 @@ class _EinsumLane:
             cw = float(1 << L)
             org = g.origins[li]
             nz, ny, nx = g.masks[li].shape
-            iz, wz, dwz = _two_taps(z_d / cw - _f32(org[0], dev) - 0.5, nz)
-            iy, wy, dwy = _two_taps(y_pos / cw - _f32(org[1], dev) - 0.5,
+            iz, wz, dwz = tent_taps(z_d / cw - _f32(org[0], dev) - 0.5, nz)
+            iy, wy, dwy = tent_taps(y_pos / cw - _f32(org[1], dev) - 0.5,
                                     ny)
-            ix, wx, dwx = _two_taps(x_pos / cw - _f32(org[2], dev) - 0.5,
+            ix, wx, dwx = tent_taps(x_pos / cw - _f32(org[2], dev) - 0.5,
                                     nx)
             vols = [g.masks[li]] + [g.vals[li][c] for c in range(n_ch)]
             for k, vol in enumerate(vols):
@@ -996,8 +1025,10 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
 
     ``t_start`` / ``t_stop``: optional (P,) sweep parameters before /
     from which the volume is not integrated (the clip box's interval,
-    clipRay exabrick.cu:1258-1264); they take the einsum lane, as does
-    ``cfg.gradient_shading_dvr`` (``megakernel_lane``).
+    clipRay exabrick.cu:1258-1264; a surface's hit, integrateVolume's
+    t1 = min(t1, surface t)).  ``t_start`` takes the einsum lane, as does
+    ``cfg.gradient_shading_dvr`` (``megakernel_lane``); ``t_stop`` alone
+    stays on the megakernel lane, where K1 tests it per sample.
 
     ``return_products=True`` (megakernel lane only) returns the
     per-chunk camera products (the sweep inputs, frame-state
@@ -1007,9 +1038,6 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     the rest}.  Passing them back as ``products`` renders the frame from
     them — identical output."""
     mega = megakernel_lane(cfg, t_start)
-    if mega and t_stop is not None:
-        raise NotImplementedError(
-            "t_stop on the megakernel lane (surfaces) is not ported yet")
     if return_products and not mega:
         raise ValueError("return_products requires the megakernel lane")
     if y_crop is not None:
@@ -1044,20 +1072,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     luts = [torch.from_numpy(l).to(dev)
             for l in scaled_luts(fs, cfg.num_channels)]
 
-    # per-level per-slab occupancy (skip levels with no cells near a slab)
-    lvl_occ = []
-    for li, L in enumerate(grids.levels):
-        cw = float(1 << L)
-        occz = grids.masks[li].amax(dim=(1, 2)).cpu()
-        nz = occz.shape[0]
-        qz = z_planes / cw - _f32(grids.origins[li][0], "cpu") - 0.5
-        k0 = torch.floor(qz).to(torch.int64)
-        o0 = torch.where((k0 >= 0) & (k0 < nz),
-                         occz[torch.clamp(k0, 0, nz - 1)], 0.0)
-        o1 = torch.where((k0 + 1 >= 0) & (k0 + 1 < nz),
-                         occz[torch.clamp(k0 + 1, 0, nz - 1)], 0.0)
-        lvl_occ.append((o0 + o1) > 0.0)
-
+    lvl_occ = _level_occupancy(grids, z_planes)
     s_chunk = effective_chunk(grids, cfg, h, w, ky_hints, t_start)
     n_chunks = -(-cfg.nslabs // s_chunk)
     pad = n_chunks * s_chunk - cfg.nslabs
@@ -1081,13 +1096,12 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         scale_d = scale.to(dev)
         z_d = z_s.to(dev)
         x_pos = ox.to(dev) + scale_d[:, None] * rx[None, :]  # (S, W)
-        s_ = z_s.shape[0]
         mids = []
         for li, L in enumerate(grids.levels):
             cw = float(1 << L)
             m = grids.masks[li]
             org = grids.origins[li]
-            nz, ny, nx = m.shape
+            nz = m.shape[0]
             qz = z_d / cw - _f32(org[0], dev) - 0.5
             # occupancy gate folded into the z taps (the pipeline is
             # linear): levels with no cells near the chunk contribute 0
@@ -1099,22 +1113,18 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                                      frz, 0.0)
             i0z = torch.clamp(k0z, 0, nz - 1)
             i1z = torch.clamp(k0z + 1, 0, nz - 1)
-            # x taps: the same tent entries the JAX package's dense tent
-            # matrix holds (1 - |qx - k| at k = floor(qx), floor(qx)+1)
-            (ix0, ix1), (wx0, wx1), _ = _two_taps(
-                x_pos / cw - _f32(org[2], dev) - 0.5, nx)  # (S, W)
-            wx0, wx1 = wx0[:, None, :], wx1[:, None, :]
-            ix0 = ix0[:, None, :].expand(s_, ny, w)
-            ix1 = ix1[:, None, :].expand(s_, ny, w)
-            out = torch.empty((cfg.num_channels + 1, s_, ny, w), dtype=f32,
-                              device=dev)
+            qx = x_pos / cw - _f32(org[2], dev) - 0.5  # (S, W)
             comps = [grids.vals[li][c] for c in range(cfg.num_channels)]
-            for c, vol in enumerate(comps + [m]):
-                zr = (wz0[:, None, None] * vol.index_select(0, i0z)
-                      + wz1[:, None, None] * vol.index_select(0, i1z))
-                out[c] = (wx0 * torch.gather(zr, 2, ix0)
-                          + wx1 * torch.gather(zr, 2, ix1))
-            mids.append(out)
+
+            def zres(vol):
+                return (wz0[:, None, None] * vol.index_select(0, i0z)
+                        + wz1[:, None, None] * vol.index_select(0, i1z))
+
+            # the x stage (K6), one launch for every component: the tent
+            # entries the JAX package's dense tent matrix holds
+            zvs = torch.stack([zres(v) for v in comps + [m]])
+            mids.append(xresample_mids(zvs, qx.contiguous(),
+                                       plain=cfg.plain_sweep))
 
         # per-slab (C, S, nyb, 2) value ranges over the z-lerp support
         # rows, for the TF-aware lateral cull
@@ -1175,6 +1185,9 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     n_cached = len(full) + len(light)
 
     tables = pack_luts(luts, domains, knots, dev) if mega else None
+    # the surface stop is a per-frame kernel input, never a camera product
+    stop_img = (None if t_stop is None or not mega else torch.as_tensor(
+        t_stop, dtype=f32).to(dev).reshape(h, w).contiguous())
     lane = None if mega else _EinsumLane(
         grids, cfg, cam_pos, d00, rx, ry, sec, dz, luts, dom_np, h, w,
         t_start, t_stop)
@@ -1208,6 +1221,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         rgb, trans = run_chunk(
             prep, sec, live_d, tables, dz, h, w, act_f=act_f,
             act_all_f=act_all_f, prev_trans=(1.0 - alpha).contiguous(),
+            t_stop=None if stop_img is None else (scale, stop_img),
             adaptive_stride=cfg.adaptive_stride, plain=cfg.plain_sweep)
         # absolute-transmittance carry: outputs arrive premultiplied
         color = color + rgb
@@ -1248,8 +1262,10 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
     only its eye and sweep direction and is never swapped.
 
     ``t_start`` / ``t_stop``: optional (P,) sweep-parameter interval per
-    pixel of this render (the clip box, ``renderer.clip_interval``); they
-    and ``cfg.gradient_shading_dvr`` take the einsum lane.
+    pixel of this render (the clip box, ``renderer.clip_interval``; an
+    iso hit's depth as ``t_stop``).  ``t_start`` and
+    ``cfg.gradient_shading_dvr`` take the einsum lane; ``t_stop`` alone
+    stays on the megakernel lane (K1's surface stop) and its cache.
 
     ``camera_cache``: optional dict owned by the caller (megakernel lane
     only; the einsum lane has no product cache).  The per-chunk camera
@@ -1351,3 +1367,301 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
                         y_crop=y_crop, t_start=transposed(t_start),
                         t_stop=transposed(t_stop))
     return rgba.reshape(width, height, 4).permute(1, 0, 2).reshape(-1, 4)
+
+
+# ----------------------------------------------------------------------------
+# iso surfaces
+# ----------------------------------------------------------------------------
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded once, through float64 (XLA's float32
+    sqrt is correctly rounded; torch's vectorized CPU one is not)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _iso_fields(grids: LevelGrids, n_ch: int, grad_chs, z_d, y_pos, x_pos,
+                occ):
+    """The fields of a batch of S slab planes (the JAX package's
+    ``_slab_field_ch``, slabs.py:403-475) in its contraction order — z,
+    then y, then x — as fp32 2-tap lerps: sw and swv[c], each (S, H, W),
+    and with ``grad_chs`` (a set of channels, or None for no gradients)
+    dsw and dswv[c] for those channels, each (3, S, H, W), the grid-frame
+    (z, y, x) partials in local units.  z_d (S,), y_pos (S, H),
+    x_pos (S, W) on the grids' device; occ: per level, whether a cell
+    lies on a z tap of any of the S planes (a level without adds 0)."""
+    dev = z_d.device
+    s_, h = y_pos.shape
+    w = x_pos.shape[1]
+    comps = [None] + list(range(n_ch))  # the mask, then the channels
+
+    def zeros(*lead):
+        return torch.zeros((*lead, s_, h, w), dtype=torch.float32,
+                           device=dev)
+
+    acc = [zeros() for _ in comps]
+    need = [] if grad_chs is None else [
+        k for k, c in enumerate(comps) if c is None or c in grad_chs]
+    dacc = {k: zeros(3) for k in need}
+    for li, L in enumerate(grids.levels):
+        if not occ[li]:
+            continue
+        cw = float(1 << L)
+        org = grids.origins[li]
+        nz, ny, nx = grids.masks[li].shape
+        iz, wz, dwz = tent_taps(z_d / cw - _f32(org[0], dev) - 0.5, nz)
+        iy, wy, dwy = tent_taps(y_pos / cw - _f32(org[1], dev) - 0.5, ny)
+        ix, wx, dwx = tent_taps(x_pos / cw - _f32(org[2], dev) - 0.5, nx)
+        for k, c in enumerate(comps):
+            vol = grids.masks[li] if c is None else grids.vals[li][c]
+            zl = _lerp_z(vol, iz, wz)  # (S, ny, nx)
+            yl = _lerp_y(zl, iy, wy, h)  # (S, H, nx)
+            acc[k] = acc[k] + _lerp_x(yl, ix, wx, w)
+            if k in dacc:
+                dacc[k] = dacc[k] + torch.stack([
+                    _lerp_x(_lerp_y(_lerp_z(vol, iz, dwz), iy, wy, h), ix,
+                            wx, w),
+                    _lerp_x(_lerp_y(zl, iy, dwy, h), ix, wx, w),
+                    _lerp_x(yl, ix, dwx, w)])
+    if grad_chs is None:
+        return acc[0], acc[1:], None, None
+    return acc[0], acc[1:], dacc[0], {c: dacc[1 + c] for c in grad_chs}
+
+
+def render_slabs_iso(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos,
+                     cam_dir00, cam_du, cam_dv, width: int, height: int,
+                     return_depth: bool = False, lattice=None,
+                     return_normals: bool = False):
+    """Slab-sweep implicit iso surfaces (``slabs.render_slabs_iso``,
+    IsoSurfaceIntegrationFunction exabrick.cu:1018-1114).  Camera vectors
+    are permuted to the grid frame and separable, or ``lattice`` ((W,),
+    (H,)) gives the lateral ray components, as in ``render_slabs``.
+
+    Per iso k, the field of channel ``fs.iso_channel[k]`` is tested for a
+    sign change between the last valid sample (carried across holes and
+    inactive slabs from -1e36) and the current one, slab by slab over the
+    slabs whose value range holds an iso value and the slab after each
+    (``act | roll(act, 1)``, wrapping as ``jnp.roll`` does).  The hit
+    parameter is the distance-weighted crossing (the midpoint on a
+    plateau); its color the iso channel's TF at the iso value, or with
+    ``cfg.colormap_channel`` != 0 the channel-0 LUT at that channel's
+    crossing value (K5, once per frame on the hit image); with
+    ``cfg.gradient_shading_iso`` shaded .3 + .7|N.L| by the lerped
+    quotient-rule gradient.  The fields are rebuilt per batch of
+    ``cfg.chunk`` active slabs (``_iso_fields``); gradients only when the
+    shading or ``return_normals`` needs them.
+
+    Returns (P, 4) rgba with alpha 1 at hits; with ``return_depth`` also
+    (P,) the sweep parameter of the first hit (inf at misses, render_slabs'
+    ``t_stop``); with ``return_normals`` also the (P, 3) face-forward unit
+    normals in the grid (z, y, x) frame and the (P,) |dir . N|."""
+    f32 = torch.float32
+    dev = grids.device
+    h, w = height, width
+    nc = cfg.num_channels
+    ccm = cfg.colormap_channel
+    if ccm >= nc:
+        raise ValueError("colormap_channel out of range")
+    d00 = np.asarray(cam_dir00, np.float32)
+    rx, ry, _ = ray_components(cam_dir00, cam_du, cam_dv, w, h, dev,
+                               lattice=lattice)
+    rz = _f32(d00[0], dev)
+    z_lo = np.float32(grids.bounds_lo[0])
+    dz = slab_spacing(grids, cfg.nslabs)
+    oz, oy, ox = (_f32(v, "cpu") for v in np.asarray(cam_pos, np.float32))
+    order = torch.arange(cfg.nslabs, dtype=f32)
+    if cfg.flip:
+        order = order.flip(0)
+    z_planes = _f32(z_lo, "cpu") + (order + 0.5) * _f32(dz, "cpu")
+    scale_all = (z_planes - oz) / _f32(d00[0], "cpu")
+
+    # iso activity per slab from the z value-range table, plus the slab
+    # after an active span (the crossing shows on the next sample)
+    zranges = grids.zranges.cpu()
+    zi = torch.clamp((z_planes - _f32(np.floor(z_lo), "cpu")).to(
+        torch.int64), 0, zranges.shape[0] - 1)
+    vr = zranges[zi]
+    iso_on = np.asarray(fs.iso_enabled, bool)
+    iso_val = np.asarray(fs.iso_value, np.float32)
+    iso_ch = np.asarray(fs.iso_channel).astype(np.int64)
+    isos = [k for k in range(iso_on.shape[0]) if iso_on[k]]
+    act = torch.zeros(cfg.nslabs, dtype=torch.bool)
+    for k in isos:
+        v = _f32(iso_val[k], "cpu")
+        act = act | ((v >= vr[:, 0]) & (v <= vr[:, 1]))
+    act = act | torch.roll(act, 1)
+
+    from .xf import lookup_xf
+
+    # per-iso surface color: the iso channel's TF at the iso value (the
+    # field at the weighted crossing is exactly the iso value)
+    lut_np = np.asarray(fs.xf_lut, np.float32)
+    dom_np = np.asarray(fs.xf_domain, np.float32)
+    iso_rgbs = {}
+    for k in isos:
+        rgb = torch.zeros(3, dtype=f32)
+        if 0 <= iso_ch[k] < nc:
+            c = int(iso_ch[k])
+            rgb = lookup_xf(torch.from_numpy(lut_np[c]),
+                            torch.from_numpy(dom_np[c]),
+                            _f32(fs.xf_opacity_scale, "cpu"),
+                            _f32(iso_val[k], "cpu"))[:3]
+        iso_rgbs[k] = rgb.to(dev)[:, None, None]
+
+    # unit ray directions in the grid frame (z, y, x), for the shading
+    rnorm = _sqrt_rn(ry[:, None] * ry[:, None] + rx[None, :] * rx[None, :]
+                     + rz * rz)
+    dirs = (rz / rnorm, ry[:, None] / rnorm, rx[None, :] / rnorm)
+
+    need_grad = cfg.gradient_shading_iso or return_normals
+    grad_chs = ({int(iso_ch[k]) for k in isos if 0 <= iso_ch[k] < nc}
+                if need_grad else None)
+    zero = torch.zeros((h, w), dtype=f32, device=dev)
+    prev_vals = [torch.full((h, w), -1e36, dtype=f32, device=dev)
+                 for _ in range(nc)]
+    prev_grads = {c: torch.zeros((3, h, w), dtype=f32, device=dev)
+                  for c in (grad_chs or ())}
+    prev_ok = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    prev_t = zero
+    found = torch.zeros_like(prev_ok)
+    color = torch.zeros((3, h, w), dtype=f32, device=dev)
+    t_hit = torch.full((h, w), float("inf"), dtype=f32, device=dev)
+    hit_n = torch.zeros((3, h, w), dtype=f32, device=dev)
+    hit_cos = zero
+    # colormap recolor: the crossing value and shade of each pixel's hit;
+    # K5 classifies the image once, after the scan
+    hit_vcm = zero
+    hit_shade = torch.ones((h, w), dtype=f32, device=dev)
+
+    # slabs in front of the eye whose samples can cross (the others leave
+    # the carry as it is)
+    todo = torch.nonzero(act & (scale_all > 1e-6)).flatten()
+    lvl_occ = _level_occupancy(grids, z_planes)
+    oy_d, ox_d = oy.to(dev), ox.to(dev)
+    for b0 in range(0, todo.numel(), cfg.chunk):
+        sel = todo[b0:b0 + cfg.chunk]
+        scale = scale_all[sel].to(dev)
+        sw, swv, dsw, dswv = _iso_fields(
+            grids, nc, grad_chs, z_planes[sel].to(dev),
+            oy_d + scale[:, None] * ry[None, :],
+            ox_d + scale[:, None] * rx[None, :],
+            [bool(o[sel].any()) for o in lvl_occ])
+        for j in range(sel.numel()):
+            ok = sw[j] > 1e-20
+            den = torch.where(ok, sw[j], 1.0)
+            vals = [swv[c][j] / den for c in range(nc)]
+            grads = {c: torch.stack([sw[j] * dswv[c][a, j]
+                                     - swv[c][j] * dsw[a, j]
+                                     for a in range(3)])
+                     for c in (grad_chs or ())}
+            sc = scale[j]
+            for k in isos:
+                iso = float(iso_val[k])
+                ch = int(iso_ch[k])
+                vk = vals[ch] if 0 <= ch < nc else zero
+                pvk = prev_vals[ch] if 0 <= ch < nc else zero
+                cross = (ok & prev_ok & ~found
+                         & (((pvk <= iso) & (vk >= iso))
+                            | ((pvk >= iso) & (vk <= iso))))
+                # distance-weighted crossing (exabrick.cu:1047-1053); a
+                # plateau at the iso value takes the midpoint
+                d1 = torch.abs(pvk - iso)
+                d2 = torch.abs(vk - iso)
+                deg = (d1 + d2) <= 0.0
+                den_k = torch.clamp(d1 + d2, min=1e-30)
+                w1 = torch.where(deg, 0.5, d2 / den_k)
+                w2 = torch.where(deg, 0.5, d1 / den_k)
+                tavg = prev_t * w1 + sc * w2
+                rgb = iso_rgbs[k]
+                shade = None
+                if need_grad:
+                    if 0 <= ch < nc:
+                        g = w1[None] * prev_grads[ch] + w2[None] * grads[ch]
+                        g = torch.where(torch.isfinite(g), g, 0.0)
+                    else:
+                        g = torch.zeros((3, h, w), dtype=f32, device=dev)
+                    gl = _sqrt_rn(g[0] * g[0] + g[1] * g[1] + g[2] * g[2])
+                    ndl = torch.abs(dirs[0] * g[0] + dirs[1] * g[1]
+                                    + dirs[2] * g[2]) / torch.clamp(
+                                        gl, min=1e-30)
+                    if cfg.gradient_shading_iso:
+                        shade = torch.where(gl > 0.0, 0.3 + 0.7 * ndl, 1.0)
+                    if return_normals:
+                        n_unit = g / torch.clamp(gl, min=1e-30)[None]
+                        # face forward (exabrick.cu:1068-1070)
+                        fwd = (dirs[0] * n_unit[0] + dirs[1] * n_unit[1]
+                               + dirs[2] * n_unit[2]) > 0.0
+                        n_unit = torch.where(fwd[None], -n_unit, n_unit)
+                        hit_n = torch.where(cross[None], n_unit, hit_n)
+                        hit_cos = torch.where(
+                            cross, torch.where(gl > 0.0, ndl, 0.0), hit_cos)
+                if ccm != 0:
+                    hit_vcm = torch.where(
+                        cross, w1 * prev_vals[ccm] + w2 * vals[ccm], hit_vcm)
+                    if shade is not None:
+                        hit_shade = torch.where(cross, shade, hit_shade)
+                else:
+                    if shade is not None:
+                        rgb = rgb * shade[None]
+                    color = torch.where(cross[None], rgb, color)
+                t_hit = torch.where(cross, tavg, t_hit)
+                found = found | cross
+            # last-valid-sample carry across holes and inactive slabs
+            prev_vals = [torch.where(ok, v, pv)
+                         for v, pv in zip(vals, prev_vals)]
+            prev_t = torch.where(ok, sc, prev_t)
+            prev_grads = {c: torch.where(ok[None], grads[c], prev_grads[c])
+                          for c in prev_grads}
+            prev_ok = prev_ok | ok
+
+    if ccm != 0:
+        # recolor through the channel-0 LUT (exabrick.cu:1079-1085): K5
+        cm_lut = torch.from_numpy(scaled_luts(fs, 1)[0]).to(dev)
+        u = xf_texel_coord(hit_vcm, dom_np[0]).contiguous()
+        r, g, b, _ = xf_classify(u, cm_lut, plain=cfg.plain_sweep)
+        rgb = torch.stack([r, g, b])
+        if cfg.gradient_shading_iso:
+            rgb = rgb * hit_shade[None]
+        color = torch.where(found[None], rgb, color)
+
+    rgba = torch.cat([color, found[None].to(f32)], dim=0)
+    out = [rgba.reshape(4, h * w).T]
+    if return_depth:
+        out.append(t_hit.reshape(h * w))
+    if return_normals:
+        out.append(hit_n.reshape(3, h * w).T)
+        out.append(hit_cos.reshape(h * w))
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def render_slabs_iso_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
+                            width: int, height: int, lattice=None,
+                            return_normals: bool = False):
+    """The iso sweep for a camera (the JAX Renderer's iso block,
+    renderer.py:615-648): permute the camera to the grid frame, sweep in
+    the view's direction, and render transposed when pixel x runs along
+    grid y.  ``lattice`` as in ``render_slabs_camera`` (never swapped).
+    Returns (rgba (P, 4), t_iso (P,)) in screen order, and with
+    ``return_normals`` also (normals (P, 3) in the grid frame, cos (P,))."""
+    if lattice is not None:
+        swapped = False
+    else:
+        mapping = separable_mapping(camera, grids.axis)
+        if mapping is None:
+            raise ValueError("camera is not separable along the grid sweep "
+                             "axis; tilted cameras pass a shear-warp lattice")
+        (swapped,) = mapping
+    pos, dir00, du, dv = permute_camera(camera, grids.axis)
+    cfg = dataclasses.replace(cfg, flip=bool(dir00[0] < 0))
+    if not swapped:
+        return render_slabs_iso(grids, fs, cfg, pos, dir00, du, dv, width,
+                                height, return_depth=True, lattice=lattice,
+                                return_normals=return_normals)
+    out = render_slabs_iso(grids, fs, cfg, pos, dir00, dv, du, height, width,
+                           return_depth=True, return_normals=return_normals)
+
+    def screen(x):  # the internal render is transposed
+        tail = tuple(x.shape[1:])
+        return x.reshape(width, height, *tail).transpose(0, 1).reshape(
+            width * height, *tail)
+
+    return tuple(screen(x) for x in out)

@@ -1,6 +1,6 @@
 """Slab-sweep stage of one chunk: y-interpolation + classification +
 front-to-back compositing (the port of ``owlexabrick_tpu/render/
-pallas_sweep.py``, default megakernel lane only).
+pallas_sweep.py``, default megakernel lane only, with its surface stop).
 
 Per chunk of S slabs the work splits in three, as in the JAX package, so
 a static camera pose can cache everything camera-dependent:
@@ -304,12 +304,14 @@ def _y_taps(yp: torch.Tensor, cw: float, org: float, ny: int):
 def sweep_chunk_reference(prep: ChunkPrep, sec: torch.Tensor,
                           live: torch.Tensor, tables: ClassifyTables, dz,
                           height: int, width: int, *, act_f, act_all_f,
-                          prev_trans=None, tiles=(0, 0),
+                          prev_trans=None, t_stop=None, tiles=(0, 0),
                           adaptive_stride: bool = False):
     """Plain-torch K1: the same function as ``csrc/sweep.cu``, vectorized
     over tiles instead of one thread block per tile.  Per tile the skip
     decisions (stride weight, saturation, field support) and the knot
-    window are taken exactly as the kernel takes them.  Returns
+    window are taken exactly as the kernel takes them.  ``t_stop``:
+    optional (t_slab (S,), t_stop (H, W)), the surface stop: a sample
+    counts only where t_slab[s] < t_stop at its pixel.  Returns
     (rgb (3, H, W), trans (H, W)) premultiplied, absolute transmittance.
     """
     f32 = torch.float32
@@ -346,6 +348,9 @@ def sweep_chunk_reference(prep: ChunkPrep, sec: torch.Tensor,
     b_acc = torch.zeros_like(t_run)
     all_act = act_all_f > 0.5
     live_h = live.cpu()
+    if t_stop is not None:
+        t_slab = t_stop[0].to(device=dev, dtype=f32)
+        t_stop_img = t_stop[1].to(f32)
 
     for s in range(s_):
         w_s = torch.where(all_act, 1.0, act_f[s])  # (R, Ct)
@@ -366,6 +371,8 @@ def sweep_chunk_reference(prep: ChunkPrep, sec: torch.Tensor,
                 for c in range(n_ch):
                     swv[c] = swv[c] + wt[:, None] * block[c]
         ok = sw > 1e-20
+        if t_stop is not None:
+            ok = ok & (t_slab[s] < t_stop_img)
         denom = torch.where(ok, sw, 1.0)
         ok_t = tiled(ok, False) & inb
         do = do & ok_t.any(-1)
@@ -436,7 +443,7 @@ def sweep_chunk_reference(prep: ChunkPrep, sec: torch.Tensor,
 def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
                      live: torch.Tensor, tables: ClassifyTables, dz,
                      height: int, width: int, *, act_f, act_all_f,
-                     prev_trans=None, tiles=(0, 0),
+                     prev_trans=None, t_stop=None, tiles=(0, 0),
                      adaptive_stride: bool = False):
     """Launch K1 (``csrc/sweep.cu``) on the current stream.  Same
     arguments and result as ``sweep_chunk_reference``.  Raises on any
@@ -471,6 +478,12 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
     check("act_all_f", act_all_f, (n_rt, n_ct))
     if prev_trans is not None:
         check("prev_trans", prev_trans, (h, w))
+    t_slab = t_stop_img = None
+    if t_stop is not None:
+        t_slab = t_stop[0].to(device=dev, dtype=torch.float32).contiguous()
+        t_stop_img = t_stop[1]
+        check("t_slab", t_slab, (s_,))
+        check("t_stop", t_stop_img, (h, w))
     check("domains", tables.domains, (n_ch, 2))
     if tables.compressed:
         m_k = tables.kpos.shape[1]
@@ -494,10 +507,10 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
     ptrs = [prep.y_pos, sec, live_f, act_f, act_all_f, prev_trans,
             tables.domains, tables.kpos, tables.ksd, tables.kbase,
             tables.kcum, tables.lut, tables.dlut, scratch,
-            out[0], out[1], out[2], out[3], *prep.mids]
+            out[0], out[1], out[2], out[3], t_slab, t_stop_img, *prep.mids]
     ints = [n_lv, n_ch, s_, h, w, tr, tc, int(tables.compressed),
             tables.n_texels, m_k, tau_mask, int(prev_trans is not None),
-            *[int(m.shape[2]) for m in prep.mids]]
+            int(t_stop is not None), *[int(m.shape[2]) for m in prep.mids]]
     flts = [np.float32(dz), *prep.cell_widths, *prep.origins_y]
     ptr_a = np.asarray([ptr(t) for t in ptrs], np.uint64)
     int_a = np.asarray(ints, np.int32)
@@ -516,26 +529,29 @@ sweep_chunk_cuda.launches = 0
 
 def run_chunk(prep: ChunkPrep, sec, live, tables: ClassifyTables, dz,
               height: int, width: int, *, act_f, act_all_f,
-              prev_trans=None, tiles=(0, 0), adaptive_stride: bool = False,
-              plain: bool = False):
+              prev_trans=None, t_stop=None, tiles=(0, 0),
+              adaptive_stride: bool = False, plain: bool = False):
     """Sweep one prepared chunk: K1 for CUDA tensors, the plain-torch
     version for CPU tensors (or anywhere when ``plain``, the explicit
-    choice a kernel-vs-plain comparison makes)."""
+    choice a kernel-vs-plain comparison makes).  ``t_stop``: optional
+    (t_slab (S,), t_stop (H, W)), as in ``pallas_sweep.run_chunk``."""
     fn = (sweep_chunk_reference if plain or sec.device.type == "cpu"
           else sweep_chunk_cuda)
     return fn(prep, sec, live, tables, dz, height, width, act_f=act_f,
-              act_all_f=act_all_f, prev_trans=prev_trans, tiles=tiles,
-              adaptive_stride=adaptive_stride)
+              act_all_f=act_all_f, prev_trans=prev_trans, t_stop=t_stop,
+              tiles=tiles, adaptive_stride=adaptive_stride)
 
 
 def sweep_chunk(mids, origins_y, cell_widths, y_pos, sec, live, luts,
                 domains, dz, height: int, width: int, *, knots=None,
-                tf_cull=None, tiles=(0, 0), adaptive_stride: bool = False,
-                prev_trans=None, plain: bool = False):
+                tf_cull=None, t_stop=None, tiles=(0, 0),
+                adaptive_stride: bool = False, prev_trans=None,
+                plain: bool = False):
     """Prepare + combine + run for one chunk (the uncached path), with
     ``pallas_sweep.sweep_chunk``'s argument order.  mids: per level
     (C+1, S, ny, W); luts: per channel (N, 4) alpha-prescaled tensors;
-    domains: (C, 2).  Returns (rgb (3, H, W), trans (H, W))."""
+    domains: (C, 2); t_stop: optional (t_slab (S,), t_stop (H, W)).
+    Returns (rgb (3, H, W), trans (H, W))."""
     prep = prepare_chunk(mids, origins_y, cell_widths, y_pos, height, width,
                          tiles=tiles, adaptive_stride=adaptive_stride,
                          tf_cull=tf_cull)
@@ -544,5 +560,5 @@ def sweep_chunk(mids, origins_y, cell_widths, y_pos, sec, live, luts,
     tables = pack_luts(luts, domains, knots, sec.device)
     return run_chunk(prep, sec, live, tables, dz, height, width,
                      act_f=act_f, act_all_f=act_all_f,
-                     prev_trans=prev_trans, tiles=tiles,
+                     prev_trans=prev_trans, t_stop=t_stop, tiles=tiles,
                      adaptive_stride=adaptive_stride, plain=plain)

@@ -1,10 +1,11 @@
-"""PyTorch port on the card: K1 (csrc/sweep.cu), K2a/K2b (csrc/warp.cu)
-and K3/K4 (csrc/xf.cu) against their plain-torch versions, and the
-port's main path and einsum lane on CUDA against the same paths on the
-CPU.  Marked ``cuda``; each test skips where no card is present (the
-check runs inside the fixture, never at import).  Imports no jax, so it
-also runs where only torch is installed; there, skip the suite's
-conftest, which sets up jax:
+"""PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
+surface stop), K2a/K2b (csrc/warp.cu), K3/K4/K5 (csrc/xf.cu) and K6
+(csrc/mids.cu) against their plain-torch versions, and the port's main
+path, einsum lane and iso path on CUDA against the same paths on the
+CPU.  Marked ``cuda``; each test skips where no card
+is present (the check runs inside the fixture, never at import).
+Imports no jax, so it also runs where only torch is installed; there,
+skip the suite's conftest, which sets up jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -29,9 +30,10 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("stop", [False, True], ids=["free", "stop"])
 @pytest.mark.parametrize("dense", [False, True], ids=["knots", "dense"])
 @pytest.mark.parametrize("carry", [False, True], ids=["fresh", "carried"])
-def test_k1_matches_plain_version(cuda, dense, carry):
+def test_k1_matches_plain_version(cuda, dense, carry, stop):
     from owlexabrick_tpu_torch.render.slabs import compress_pwl
 
     d = seeded_inputs(5)
@@ -53,6 +55,17 @@ def test_k1_matches_plain_version(cuda, dense, carry):
               adaptive_stride=True,
               prev_trans=(torch.from_numpy(d["pt"]).to(cuda) if carry
                           else None))
+    if stop:
+        # per-slab sweep parameters and a per-pixel stop cutting about
+        # half the slabs, a quarter of the pixels exactly at a slab
+        rng = np.random.default_rng(9)
+        s_ = d["y_pos"].shape[0]
+        t_slab = (10.0 + 0.5 * np.arange(s_)).astype(np.float32)
+        t_img = rng.uniform(t_slab[0], t_slab[-1], (H, W)).astype(np.float32)
+        tie = rng.uniform(size=(H, W)) < 0.25
+        t_img[tie] = t_slab[rng.integers(0, s_, (H, W))][tie]
+        kw["t_stop"] = (torch.from_numpy(t_slab).to(cuda),
+                        torch.from_numpy(t_img).to(cuda))
     n0 = PS.sweep_chunk_cuda.launches
     rgb_k, t_k = PS.sweep_chunk_cuda(*args, **kw)
     assert PS.sweep_chunk_cuda.launches == n0 + 1
@@ -65,8 +78,9 @@ def test_k1_matches_plain_version(cuda, dense, carry):
 
 
 def test_main_path_on_card_matches_cpu(cuda):
-    """render_slabs_camera on the card (K1) == on the CPU (plain)."""
+    """render_slabs_camera on the card (K6, K1) == on the CPU (plain)."""
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render import mids as PM
     from owlexabrick_tpu_torch.render.camera import Camera
     from owlexabrick_tpu_torch.render.frame import make_frame_state
     from owlexabrick_tpu_torch.render.slabs import (
@@ -80,9 +94,10 @@ def test_main_path_on_card_matches_cpu(cuda):
                          30.0, 24, 24)
     fs = make_frame_state(cam, 1, [[0.0, 1.0]], dt=1.0, opacity_scale=0.8)
     cfg = SlabConfig(nslabs=20, chunk=4, adaptive_stride=True)
-    n0 = PS.sweep_chunk_cuda.launches
+    n0 = PS.sweep_chunk_cuda.launches, PM.xresample_mids_cuda.launches
     got = render_slabs_camera(g_gpu, fs, cfg, cam, 24, 24).cpu()
-    assert PS.sweep_chunk_cuda.launches > n0
+    assert PS.sweep_chunk_cuda.launches > n0[0]
+    assert PM.xresample_mids_cuda.launches > n0[1]
     want = render_slabs_camera(g_cpu, fs, cfg, cam, 24, 24)
     assert float((got - want).abs().max()) < 1e-5
     plain = render_slabs_camera(
@@ -210,3 +225,94 @@ def test_einsum_lane_on_card_matches_cpu(cuda, channels, grad):
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) < 1e-5
     assert float(want[:, 3].max()) > 0.3
+
+
+def test_k5_matches_plain_version(cuda):
+    """K5 (csrc/xf.cu) against xf_classify_reference on the card: u over
+    [0, 127] with every integer texel, a random LUT, within 1e-5."""
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    rng = np.random.default_rng(4)
+    u = rng.uniform(0.0, 127.0, (64, 1000)).astype(np.float32)
+    u[0, :128] = np.arange(128, dtype=np.float32)
+    lut = rng.uniform(0.0, 1.0, (128, 4)).astype(np.float32)
+    u_d, lut_d = torch.from_numpy(u).to(cuda), torch.from_numpy(lut).to(cuda)
+    n0 = PC.xf_classify_cuda.launches
+    got = PC.xf_classify(u_d, lut_d)
+    assert PC.xf_classify_cuda.launches == n0 + 1
+    want = PC.xf_classify(u_d, lut_d, plain=True)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert g.shape == (64, 1000) and torch.isfinite(g).all()
+        assert float((g - p).abs().max()) <= 1e-5
+
+
+def test_k6_matches_plain_version(cuda):
+    """K6 (csrc/mids.cu) against xresample_mids_reference on the card:
+    seeded blocks, qx past both lattice ends and on lattice points, ny no
+    multiple of the kernel's row split, within 1e-6."""
+    from owlexabrick_tpu_torch.render import mids as PM
+
+    rng = np.random.default_rng(8)
+    c, s_, ny, nx, w = 3, 5, 37, 29, 300
+    zvs = torch.from_numpy(rng.uniform(-1.0, 2.0, (c, s_, ny, nx)).astype(
+        np.float32)).to(cuda)
+    qx = np.sort(rng.uniform(-2.5, nx + 1.5, (s_, w)), 1).astype(np.float32)
+    qx[:, 10:20] = np.arange(10, dtype=np.float32)
+    qx = torch.from_numpy(qx).to(cuda)
+    n0 = PM.xresample_mids_cuda.launches
+    got = PM.xresample_mids(zvs, qx)
+    assert PM.xresample_mids_cuda.launches == n0 + 1
+    want = PM.xresample_mids(zvs, qx, plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == (c, s_, ny, w) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_iso_on_card_matches_cpu(cuda):
+    """The iso sweep, the volume stopped at its hits (K1's stop, its
+    camera products' x stage in K6) and the colormap recolor (K5) on the
+    card == on the CPU (plain versions)."""
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render import classify as PC
+    from owlexabrick_tpu_torch.render import mids as PM
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.slabs import (
+        SlabConfig, level_grids_from_cells, render_slabs_camera,
+        render_slabs_iso_camera)
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    lower, level, scal = volume_to_cells(synthetic_volume(16), 0.004, 3)
+    g_cpu = level_grids_from_cells(lower, level,
+                                   np.stack([scal, 1.05 - scal]),
+                                   device="cpu")
+    g_gpu = g_cpu.to(cuda)
+    cam = Camera.look_at([8.0, 8.0, 40.0], [8.0, 8.0, 8.0], [0, 1, 0],
+                         30.0, 24, 24)
+    fs = make_frame_state(cam, 2, [[0.0, 1.05], [0.0, 1.05]], dt=1.0,
+                          opacity_scale=0.8)
+    fs = dataclasses.replace(fs, iso_enabled=np.asarray([True, False]),
+                             iso_value=np.asarray([0.55, 0.0], np.float32))
+    cfg = SlabConfig(num_channels=2, nslabs=20, chunk=4, colormap_channel=1)
+    counts = (PS.sweep_chunk_cuda, PC.xf_classify_cuda,
+              PM.xresample_mids_cuda)
+    frames = []
+    for g in (g_gpu, g_cpu):
+        n0 = [k.launches for k in counts]
+        rgba_i, t_iso, n, cos = render_slabs_iso_camera(
+            g, fs, cfg, cam, 24, 24, return_normals=True)
+        vol = render_slabs_camera(g, fs, cfg, cam, 24, 24, t_stop=t_iso)
+        frames.append([x.cpu() for x in (rgba_i, t_iso, n, cos, vol)])
+        ran = [k.launches > c for k, c in zip(counts, n0)]
+        assert ran == [g is g_gpu] * 3
+    # the fields round alike on both devices but for the order of a few
+    # sums: hit masks may flip at an exact tie, so compare where both hit
+    got, want = frames
+    hit = (got[0][:, 3] > 0) & (want[0][:, 3] > 0)
+    assert (hit == (want[0][:, 3] > 0)).float().mean() >= 0.99
+    assert int(hit.sum()) > 20
+    for g, w in zip(got[:4], want[:4]):
+        assert float((g[hit] - w[hit]).abs().max()) < 1e-4
+    assert float((got[4] - want[4]).abs().max(1).values.gt(1e-4)
+                 .float().mean()) <= 0.01

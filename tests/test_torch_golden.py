@@ -64,17 +64,22 @@ def test_renderer_static_pose_uses_camera_cache(cells, tilted):
 
 
 def test_renderer_unported_features_raise(cells):
-    """Iso surfaces, AO and contour planes still raise; the clip box and
-    DVR gradient shading render (the einsum lane)."""
+    """AO and contour planes still raise; the clip box and DVR gradient
+    shading render (the einsum lane), and so do iso surfaces (the iso
+    sweep, then K1 with its surface stop)."""
     import dataclasses
 
-    for patch in (dict(iso_enabled=np.asarray([True, False])),
-                  dict(ao_enabled=np.bool_(True)),
+    for patch in (dict(ao_enabled=np.bool_(True)),
                   dict(contour_enabled=np.asarray([True, False, False]))):
         r = _renderer(cells, False)
         r.fs = dataclasses.replace(r.fs, **patch)
         with pytest.raises(NotImplementedError):
             r.render()
+    r = Renderer(cells, W, H, cfg=RenderConfig(iso_surfaces=True),
+                 frame_state=_renderer(cells, False).fs, device="cpu")
+    r.update_iso_values([0.55, 0.0], [0, 0], [True, False])
+    assert r.enable_fast_path()
+    assert (r.image_uint8(r.render())[..., :3] > 16).any()
     r = _renderer(cells, False)
     r.set_clip_box(True, [N * 0.25, 0.0, 0.0], [N, N, N * 0.8])
     img = r.image_uint8(r.render())
