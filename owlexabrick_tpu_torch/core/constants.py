@@ -5,6 +5,9 @@ exa/common.h:40-44, programs/FrameState.h:27, programs/exabrick.cu:49)."""
 # number of entries in a transfer-function lookup table
 NUM_XF_VALUES = 128
 
+# maximum number of scalar channels a scene may carry
+MAX_CHANNELS = 10
+
 # maximum number of simultaneously enabled iso surfaces
 MAX_ISO_SURFACES = 2
 

@@ -5,12 +5,12 @@
 // :1859).  Per (tr x tc) image tile and per slab of the chunk it
 // computes the y-tent interpolation of every level's x-resampled mids
 // (sw, swv), value = swv/sw, the transfer-function classification
-// (compressed relu-PWL knots over the tile's two-sided knot window, or
-// the dense range-limited 128-texel loop), the opacity correction
-// (1-exp(-tau*e) for optical-depth channels, else 1-(1-a)^e with
-// e = dz*w_s*sec), the channel merge, and the front-to-back composite
-// with an absolute-transmittance carry.  With a surface stop (has_stop,
-// the TPU kernel's t_slab/t_stop refs, pallas_sweep.py:247-249, tested at
+// (compressed relu-PWL knots from the tile's knot window, or the dense
+// range-limited 128-texel loop), the opacity correction (1-exp(-tau*e)
+// for optical-depth channels, else 1-(1-a)^e with e = dz*w_s*sec), the
+// channel merge, and the front-to-back composite with an
+// absolute-transmittance carry.  With a surface stop (has_stop, the TPU
+// kernel's t_slab/t_stop refs, pallas_sweep.py:247-249, tested at
 // :510-511, :618-619, :660-663) a sample counts only where the slab's
 // sweep parameter t_slab[s] lies strictly before the pixel's t_stop: the
 // iso or geometry hit caps the volume interval (integrateVolume's
@@ -20,39 +20,75 @@
 // What bounds it on this card: every active (slab, pixel) reads two
 // lattice rows of each level's mids per component, about
 // 2 * L * (C+1) * S * H * W * 4 bytes per chunk (~100-400 MB at 1080p),
-// against ~40 flops of classification per sample.  That is far below
-// the tensor-core ridge, so the kernel is memory- and issue-bound; the
-// TPU's MXU contraction has no counterpart here.
+// against ~40 flops of classification per sample plus ~10 per knot
+// walked.  That is far below the tensor-core ridge (the y contraction is
+// two taps per level), so the kernel is bound by memory and by the
+// instructions it issues.
 //
-// What this simple design does about it: one thread block per tile, so
-// the reference's per-tile decisions stay exact (the act_f stride
-// weight, the act_all_f dense branch, the block-wide max T > 0.005 test
-// each slab, the skip of tiles earlier chunks saturated).  At 1080p that
-// is 75 blocks of 1024 threads on 132 SMs.  Neighbouring threads take
-// neighbouring columns, so each mid row read is coalesced; the channel
-// count is a template argument, so the per-channel sums and knot windows
-// stay in registers.
-// The two taps are read straight from global memory (no window copy),
-// and slab work is skipped wherever the reference skips it.  The r, g,
-// b, T carry lives in the output images and the per-slab texel
-// coordinates in a wrapper-allocated scratch image; both stay L2-resident
-// (the whole 1080p frame is ~33 MB).  The kernel allocates nothing and
-// launches on the caller's stream.
+// The design:
+// * One thread-block cluster of kCluster blocks per reference tile: the
+//   tile's rows are split over the cluster's blocks (216 rows at 1080p:
+//   27 each, 600 blocks instead of 75 tiles), so every SM works while
+//   every per-tile decision of the reference stays tile-wide.  Those
+//   decisions (the stride weight w_s and act_all, live[s], the skip of
+//   tiles earlier chunks saturated, the per-slab max T > 0.005 test with
+//   out-of-bounds lanes at t_oob, any_ok, the knot window's lower end
+//   from the tile's u_min) come from one record per slab, {max T, any_ok,
+//   u_min per channel}, reduced over the block's warps and then over the
+//   cluster's blocks through distributed shared memory: one block-wide
+//   and one cluster-wide round per slab, beside the barrier that
+//   publishes the slab's taps.  Every skip is taken on cluster-reduced
+//   values, so every block reaches the same barriers.
+//   Phase A (interpolation) of a slab runs before that slab's saturation
+//   test is known; phase B (classification) stays gated, so the image
+//   does not change.
+// * Each pixel stops its knot walk at its own value: knots from the
+//   tile's lo_k up to the first with pos >= u (dense: up to floor(u)).
+//   The knots past it add exact zeros (relu(u - pos) = 0; the TPU kernel
+//   says so at pallas_sweep.py:758-761), so the tile's upper window end
+//   is not needed.  The knot tables (or the dense LUT's differences) sit
+//   in shared memory.
+// * The two rows and tent weights of each (row, level) are computed once
+//   per slab into shared memory, with the same operations.
+// * A thread owns fixed pixels of its block's rows for the whole chunk;
+//   their r, g, b, T, sec and per-channel texel coordinate stay in shared
+//   memory (the carry), prev_t is read once and the outputs are written
+//   once.  A tile too large for shared memory (a 256x512 tile) keeps the
+//   same carry in a wrapper-allocated global scratch instead.
 //
-// Built with -fmad=false so each multiply and add rounds like the plain
-// torch version's separate ops.
+// Per sample the arithmetic is the reference's, in its order (levels,
+// taps, channels; the strict stop; expf / powf opacity), built with
+// -fmad=false so each multiply and add rounds like the plain torch
+// version's separate ops.  The kernel allocates nothing and launches on
+// the caller's stream.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kMaxCh = 4;
-// 1024 threads (32 warps) per tile: with only one block per SM, more
-// warps hide more load latency (measured against 512 in PERF.md)
-constexpr int kThreads = 1024;
+constexpr int kMaxCh = 10;  // MAX_CHANNELS of the data model
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+// blocks per tile (the portable maximum): measured faster at 1080p than
+// 4, 2 and 1, and faster with the carry on chip than in global memory
+// (PERF.md)
+constexpr int kCluster = 8;
+
+// The launch shape of one chunk: a cluster of k blocks per tile, each
+// holding rpb rows; dynamic shared memory (in floats) = the warp records,
+// the cluster record (two slots), the classification tables, the per-row
+// taps and, where it fits, the carry.
+struct Shape {
+  int k, rpb, cap, off_crec, off_tab, off_taps, off_carry, carry_floats;
+  int smem_bytes, on_chip;
+  dim3 grid;
+};
 
 struct Params {
   const float* mids[kMaxLevels];  // (C+1, S, ny, W): channels, then mask
@@ -62,6 +98,7 @@ struct Params {
   int n_levels, n_ch, S, H, W, tr, tc, n_rt, n_ct;
   int compressed, n_texels, m_knots, tau_mask, has_pt, has_stop;
   float dz;
+  Shape shape;
   const float* ypos;     // (S, H)
   const float* sec;      // (H, W)
   const float* live;     // (S,)
@@ -71,126 +108,237 @@ struct Params {
   const float* t_slab;   // (S,) or null: each slab's sweep parameter
   const float* t_stop;   // (H, W) or null: per-pixel stop parameter
   const float* dom;      // (C, 2)
-  const float* kpos;     // (C, M)
+  const float* kpos;     // (C, M), sorted, padded with N
   const float* ksd;      // (C, M, 4)
   const float* kbase;    // (C, 4)
   const float* kcum;     // (C, M+1, 8)
   const float* lut;      // (C, N, 4)
   const float* dlut;     // (C, N, 4)
-  float* scratch_u;      // (C, H, W)
+  float* carry_g;        // global carry when it does not fit on chip
   float* out_r;
   float* out_g;
   float* out_b;
   float* out_t;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__host__ __device__ constexpr int rec_floats(int n_ch) { return 2 + n_ch; }
+__host__ __device__ constexpr int carry_planes(int n_ch) { return 5 + n_ch; }
+
+int round4(int v) { return (v + 3) & ~3; }
+
+Shape make_shape(const Params& p, int smem_limit) {
+  Shape s = {};
+  s.k = kCluster;
+  s.rpb = (p.tr + s.k - 1) / s.k;
+  s.cap = s.rpb * p.tc;
+  const int f = rec_floats(p.n_ch);
+  s.off_crec = round4(kWarps * f);
+  s.off_tab = round4(s.off_crec + 2 * f);
+  const int tab = p.compressed ? p.n_ch * p.m_knots * 5
+                               : p.n_ch * p.n_texels * 4;
+  s.off_taps = round4(s.off_tab + tab);
+  s.off_carry = s.off_taps + s.rpb * p.n_levels * 4;
+  const long long carry = (long long)carry_planes(p.n_ch) * s.cap;
+  s.on_chip = (s.off_carry + carry) * 4 <= smem_limit;
+  s.smem_bytes = (int)((s.off_carry + (s.on_chip ? carry : 0)) * 4);
+  s.grid = dim3(p.n_ct * s.k, p.n_rt);
+  s.carry_floats =
+      s.on_chip ? 0 : (int)(carry * s.grid.x * s.grid.y);
+  return s;
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide reductions: every thread calls, every thread gets the result.
-__device__ float block_max(float v, float* red) {
-  v = warp_max(v);
+// Reduce the slab record {max T, any_ok, u_min[c]} over the tile: warps,
+// then the block, then the cluster's blocks (each block's record sits in
+// slot `parity` of its shared memory; every block reads its peers' after
+// the cluster barrier, and the other slot is written next, so one
+// barrier per round suffices).  Every thread gets the tile's values.
+template <int NCH>
+__device__ void tile_reduce(float (&rec)[rec_floats(NCH)], float* wrec,
+                            float* crec, int parity, int k,
+                            const cg::cluster_group& cluster) {
+  constexpr int F = rec_floats(NCH);
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();  // the previous reduction's readers are done with red
-  if (lane == 0) red[wid] = v;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    float v = rec[f];
+    for (int o = 16; o > 0; o >>= 1) {
+      const float w = __shfl_xor_sync(0xffffffffu, v, o);
+      v = f < 2 ? fmaxf(v, w) : fminf(v, w);
+    }
+    rec[f] = v;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) wrec[wid * F + f] = rec[f];
+  }
   __syncthreads();
-  v = (lane < (int)(blockDim.x >> 5)) ? red[lane] : -INFINITY;
-  return warp_max(v);
+  if (wid == 0) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      float v = rec[f];
+      if (lane < kWarps) v = wrec[lane * F + f];
+      for (int o = 16; o > 0; o >>= 1) {
+        const float w = __shfl_xor_sync(0xffffffffu, v, o);
+        v = f < 2 ? fmaxf(v, w) : fminf(v, w);
+      }
+      if (lane == 0) crec[parity * F + f] = v;
+    }
+  }
+  cluster.sync();
+  for (int r = 0; r < k; ++r) {
+    const float* peer = cluster.map_shared_rank(crec + parity * F, r);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float v = peer[f];
+      rec[f] = r == 0 ? v : (f < 2 ? fmaxf(rec[f], v) : fminf(rec[f], v));
+    }
+  }
 }
 
-__device__ float block_min(float v, float* red) {
-  v = warp_min(v);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  v = (lane < (int)(blockDim.x >> 5)) ? red[lane] : INFINITY;
-  return warp_min(v);
-}
+// The in-bounds pixels of a block's rows, dealt to its threads in a fixed
+// order: pixel q (its carry slot) at block row lr, tile column col.
+struct Span {
+  int rows, cols, dr, dc;
+  __device__ Span(int rows_in, int cols_in)
+      : rows(rows_in), cols(cols_in), dr(kThreads / cols_in),
+        dc(kThreads % cols_in) {}
+  template <class F>
+  __device__ __forceinline__ void each(F&& f) const {
+    int lr = threadIdx.x / cols, col = threadIdx.x % cols;
+    for (int q = threadIdx.x; lr < rows; q += kThreads) {
+      f(q, lr, col);
+      col += dc;
+      lr += dr;
+      if (col >= cols) {
+        col -= cols;
+        ++lr;
+      }
+    }
+  }
+};
 
 template <int NCH>
-__global__ void __launch_bounds__(kThreads)
-sweep_kernel(const Params p) {
-  __shared__ float red[32];
-  const int ct = blockIdx.x, rt = blockIdx.y;
-  const int npx = p.tr * p.tc;
+__global__ void __launch_bounds__(kThreads, NCH <= 2 ? 2 : 1)
+sweep_kernel(const __grid_constant__ Params p) {
+  constexpr int F = rec_floats(NCH);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ct = blockIdx.x / p.shape.k, rt = blockIdx.y;
   const int row0 = rt * p.tr, col0 = ct * p.tc;
-  const size_t hw = (size_t)p.H * p.W;
+  const int r0 = rank * p.shape.rpb, r1 = min(r0 + p.shape.rpb, p.tr);
+  const int rows_in = max(min(r1, p.H - row0) - r0, 0);
+  const Span span(rows_in, min(p.tc, p.W - col0));
   // out-of-bounds tile positions never classify; their transmittance
   // (0 with a carried image, else 1) only enters the tile max
   const float t_oob = p.has_pt ? 0.f : 1.f;
-
-  float tmax = 0.f;
-  for (int q = threadIdx.x; q < npx; q += blockDim.x) {
-    const int i = row0 + q / p.tc, j = col0 + q % p.tc;
-    float t = t_oob;
-    if (i < p.H && j < p.W) {
-      const size_t idx = (size_t)i * p.W + j;
-      t = p.has_pt ? p.prev_t[idx] : 1.f;
-      p.out_r[idx] = 0.f;
-      p.out_g[idx] = 0.f;
-      p.out_b[idx] = 0.f;
-      p.out_t[idx] = t;
-    }
-    tmax = fmaxf(tmax, t);
-  }
-  tmax = block_max(tmax, red);
-  // tiles every earlier chunk saturated do nothing at all
-  if (!(tmax > 0.005f)) return;
-
-  const bool all_act = p.act_all[rt * p.n_ct + ct] > 0.5f;
+  const bool has_oob = r1 > r0 && (row0 + r1 > p.H || col0 + p.tc > p.W);
   const float n = (float)p.n_texels;
-  const int nk = p.n_texels;
-  const int m = p.m_knots;
+  const int nk = p.n_texels, m = p.m_knots, cap = p.shape.cap;
 
-  for (int s = 0; s < p.S; ++s) {
+  float* wrec = sm;
+  float* crec = sm + p.shape.off_crec;
+  float4* taps = reinterpret_cast<float4*>(sm + p.shape.off_taps);
+  float* carry =
+      p.shape.on_chip ? sm + p.shape.off_carry
+                : p.carry_g + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
+                                  carry_planes(NCH) * cap;
+  float* c_t = carry;
+  float* c_r = carry + cap;
+  float* c_g = carry + 2 * cap;
+  float* c_b = carry + 3 * cap;
+  float* c_sec = carry + 4 * cap;
+  float* c_u = carry + 5 * cap;  // per channel; channel 0 < 0: no support
+
+  // classification tables into shared memory: compressed knots as
+  // (sd float4 [C][M], pos [C][M]); dense as the LUT differences
+  float4* t_sd = reinterpret_cast<float4*>(sm + p.shape.off_tab);
+  float* t_pos = sm + p.shape.off_tab + 4 * NCH * m;
+  if (p.compressed) {
+    for (int e = threadIdx.x; e < NCH * m; e += kThreads) {
+      t_sd[e] = reinterpret_cast<const float4*>(p.ksd)[e];
+      t_pos[e] = p.kpos[e];
+    }
+  } else {
+    for (int e = threadIdx.x; e < NCH * nk; e += kThreads)
+      t_sd[e] = reinterpret_cast<const float4*>(p.dlut)[e];
+  }
+
+  float tloc = has_oob ? t_oob : 0.f;
+  span.each([&](int q, int lr, int col) {
+    const size_t idx = (size_t)(row0 + r0 + lr) * p.W + col0 + col;
+    const float t = p.has_pt ? p.prev_t[idx] : 1.f;
+    c_t[q] = t;
+    c_r[q] = 0.f;
+    c_g[q] = 0.f;
+    c_b[q] = 0.f;
+    c_sec[q] = p.sec[idx];
+    tloc = fmaxf(tloc, t);
+  });
+  float rec[F];
+  rec[0] = tloc;
+  rec[1] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) rec[2 + c] = n - 1.f;
+  int parity = 0;
+  tile_reduce<NCH>(rec, wrec, crec, parity, p.shape.k, cluster);
+  const bool all_act = p.act_all[rt * p.n_ct + ct] > 0.5f;
+  // tiles every earlier chunk saturated do nothing at all
+  for (int s = 0; rec[0] > 0.005f && s < p.S; ++s) {
     // per-(slab, tile) step weight: 0 = no cell reaches the tile, k > 1 =
     // this slab stands in for k coarse-only slabs (adaptive stride)
     const float w_s =
         all_act ? 1.f : p.act[((size_t)s * p.n_rt + rt) * p.n_ct + ct];
-    if (!(w_s > 0.f) || !(tmax > 0.005f) || !(p.live[s] > 0.f)) continue;
+    if (!(w_s > 0.f) || !(p.live[s] > 0.f)) continue;
 
-    // phase A: interpolate, store texel coordinates, reduce the window
-    float umin[NCH], umax[NCH];
+    // the two rows and tent weights of each (block row, level)
+    for (int e = threadIdx.x; e < rows_in * p.n_levels; e += kThreads) {
+      const int lr = e / p.n_levels, l = e % p.n_levels;
+      const int ny = p.ny[l];
+      const float yp = p.ypos[(size_t)s * p.H + row0 + r0 + lr];
+      const float t = yp / p.cw[l];
+      const float base = p.orgy_half[l];
+      const float k0f = floorf(t - base);
+      const int k0 = (int)k0f;
+      float w[2];
+      int valid = 0;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      umin[c] = n - 1.f;
-      umax[c] = 0.f;
+      for (int tap = 0; tap < 2; ++tap) {
+        const int kr = k0 + tap;
+        const float qk = t - (base + (k0f + (float)tap));
+        w[tap] = fmaxf(1.f - fabsf(qk), 0.f);
+        valid |= (kr >= 0 && kr < ny) << tap;
+      }
+      taps[e] = make_float4(__int_as_float(k0), w[0], w[1],
+                            __int_as_float(valid));
     }
+    __syncthreads();
+
+    // phase A: interpolate, texel coordinates into the carry
+    const float ts = p.has_stop ? p.t_slab[s] : 0.f;
     float any_ok = 0.f;
-    for (int q = threadIdx.x; q < npx; q += blockDim.x) {
-      const int i = row0 + q / p.tc, j = col0 + q % p.tc;
-      if (i >= p.H || j >= p.W) continue;
-      const size_t idx = (size_t)i * p.W + j;
-      const float yp = p.ypos[(size_t)s * p.H + i];
+    float umin[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) umin[c] = n - 1.f;
+    span.each([&](int q, int lr, int col) {
+      const int i = row0 + r0 + lr, j = col0 + col;
       float sw = 0.f;
       float swv[NCH];
 #pragma unroll
       for (int c = 0; c < NCH; ++c) swv[c] = 0.f;
       for (int l = 0; l < p.n_levels; ++l) {
-        const int ny = p.ny[l];
-        const float t = yp / p.cw[l];
-        const float base = p.orgy_half[l];
-        const float k0f = floorf(t - base);
-        const int k0 = (int)k0f;
-        const size_t cstride = (size_t)p.S * ny * p.W;
-        const float* m0 = p.mids[l] + (size_t)s * ny * p.W + j;
+        const float4 tp = taps[lr * p.n_levels + l];
+        const int k0 = __float_as_int(tp.x);
+        const int valid = __float_as_int(tp.w);
+        const size_t cstride = (size_t)p.S * p.ny[l] * p.W;
+        const float* m0 =
+            p.mids[l] + ((ptrdiff_t)s * p.ny[l] + k0) * p.W + j;
 #pragma unroll
         for (int tap = 0; tap < 2; ++tap) {
-          const int k = k0 + tap;
-          if (k < 0 || k >= ny) continue;
-          const float qk = t - (base + (k0f + (float)tap));
-          const float wk = fmaxf(1.f - fabsf(qk), 0.f);
-          const float* r = m0 + (size_t)k * p.W;
+          if (!((valid >> tap) & 1)) continue;
+          const float wk = tap ? tp.z : tp.y;
+          const float* r = m0 + (size_t)tap * p.W;
           sw = sw + wk * __ldg(r + NCH * cstride);
 #pragma unroll
           for (int c = 0; c < NCH; ++c)
@@ -198,8 +346,9 @@ sweep_kernel(const Params p) {
         }
       }
       // the stop is strict: a slab exactly at the surface does not count
-      const bool ok = sw > 1e-20f &&
-                      (!p.has_stop || p.t_slab[s] < p.t_stop[idx]);
+      const bool ok =
+          sw > 1e-20f &&
+          (!p.has_stop || ts < p.t_stop[(size_t)i * p.W + j]);
       const float denom = ok ? sw : 1.f;
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
@@ -208,86 +357,95 @@ sweep_kernel(const Params p) {
         float sc = (n - 1.f) * (value - lo) / ((hi - lo) + 1e-20f);
         sc = fminf(fmaxf(sc + 0.5f, 0.f), n - 1.f) / (n - 1.f);
         const float ur = fminf(fmaxf(sc * n - 0.5f, 0.f), n - 1.f);
-        p.scratch_u[c * hw + idx] = ok ? ur : -1.f;
-        if (ok) {
-          umin[c] = fminf(umin[c], ur);
-          umax[c] = fmaxf(umax[c], ur);
-        }
+        c_u[c * cap + q] = ok ? ur : -1.f;
+        if (ok) umin[c] = fminf(umin[c], ur);
       }
       if (ok) any_ok = 1.f;
-    }
-    if (!(block_max(any_ok, red) > 0.f)) continue;
-    int lo_k[NCH], hi_k[NCH];
+    });
+
+    // the tile's record: max T before this slab, any_ok, u_min
+    rec[0] = tloc;
+    rec[1] = any_ok;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) rec[2 + c] = umin[c];
+    parity ^= 1;
+    tile_reduce<NCH>(rec, wrec, crec, parity, p.shape.k, cluster);
+    if (!(rec[0] > 0.005f)) break;
+    if (!(rec[1] > 0.f)) continue;
+
+    // the knot window's lower end: knots at or below the tile's min
+    // fold into the prefix sums
+    int lo_k[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-      const float u_min = block_min(umin[c], red);
-      const float u_max = block_max(umax[c], red);
+      const float u_min = rec[2 + c];
       if (p.compressed) {
-        // two-sided knot window: knots at or below the tile's min fold
-        // into the prefix sums, knots at or past its max contribute 0
-        int a = 0, b = 0;
-        for (int jk = 0; jk < m; ++jk) {
-          const float pos = p.kpos[c * m + jk];
-          a += pos <= u_min;
-          b += pos < u_max;
+        // count the knots at or below u_min, 32 at a time over the warp
+        int a = 0;
+        for (int j0 = 0; j0 < m; j0 += 32) {
+          const int jk = j0 + (threadIdx.x & 31);
+          a += __popc(__ballot_sync(
+              0xffffffffu, jk < m && t_pos[c * m + jk] <= u_min));
         }
         lo_k[c] = a;
-        hi_k[c] = b;
       } else {
         lo_k[c] = min(max((int)floorf(u_min), 0), nk - 2);
-        hi_k[c] = min(max((int)floorf(u_max), 0), nk - 2);
       }
     }
 
     // phase B: classify, merge channels, composite
     const float dzw = p.dz * w_s;
-    float tloc = 0.f;
-    for (int q = threadIdx.x; q < npx; q += blockDim.x) {
-      const int i = row0 + q / p.tc, j = col0 + q % p.tc;
-      if (i >= p.H || j >= p.W) {
-        tloc = fmaxf(tloc, t_oob);
-        continue;
-      }
-      const size_t idx = (size_t)i * p.W + j;
-      float trun = p.out_t[idx];
-      if (p.scratch_u[idx] < 0.f) {  // no field support here
+    tloc = has_oob ? t_oob : 0.f;
+    span.each([&](int q, int lr, int col) {
+      float trun = c_t[q];
+      if (c_u[q] < 0.f) {  // no field support here
         tloc = fmaxf(tloc, trun);
-        continue;
+        return;
       }
-      const float e = dzw * p.sec[idx];
+      const float e = dzw * c_sec[q];
       float slab_a = 0.f, slab_r = 0.f, slab_g = 0.f, slab_b = 0.f;
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
-        const float u = p.scratch_u[c * hw + idx];
+        const float u = c_u[c * cap + q];
+        const int lo = lo_k[c];
         float cr, cg, cb, ca;
         if (p.compressed) {
-          const float* cum = p.kcum + ((size_t)c * (m + 1) + lo_k[c]) * 8;
+          const float* cum = p.kcum + ((size_t)c * (m + 1) + lo) * 8;
           const float* bs = p.kbase + c * 4;
-          cr = (bs[0] + u * cum[0]) - cum[4];
-          cg = (bs[1] + u * cum[1]) - cum[5];
-          cb = (bs[2] + u * cum[2]) - cum[6];
-          ca = (bs[3] + u * cum[3]) - cum[7];
-          for (int jk = lo_k[c]; jk < hi_k[c]; ++jk) {
-            const float ramp = fmaxf(u - p.kpos[c * m + jk], 0.f);
-            const float* sd = p.ksd + ((size_t)c * m + jk) * 4;
-            cr = cr + ramp * sd[0];
-            cg = cg + ramp * sd[1];
-            cb = cb + ramp * sd[2];
-            ca = ca + ramp * sd[3];
+          cr = (__ldg(bs + 0) + u * __ldg(cum + 0)) - __ldg(cum + 4);
+          cg = (__ldg(bs + 1) + u * __ldg(cum + 1)) - __ldg(cum + 5);
+          cb = (__ldg(bs + 2) + u * __ldg(cum + 2)) - __ldg(cum + 6);
+          ca = (__ldg(bs + 3) + u * __ldg(cum + 3)) - __ldg(cum + 7);
+          // knots at or past u add exact zeros: stop at the first
+          const float* kp = t_pos + c * m;
+          const float4* sd = t_sd + c * m;
+          for (int jk = lo; jk < m; ++jk) {
+            const float pos = kp[jk];
+            if (!(pos < u)) break;
+            const float ramp = fmaxf(u - pos, 0.f);
+            const float4 d = sd[jk];
+            cr = cr + ramp * d.x;
+            cg = cg + ramp * d.y;
+            cb = cb + ramp * d.z;
+            ca = ca + ramp * d.w;
           }
         } else {
-          const float* l0 = p.lut + ((size_t)c * nk + lo_k[c]) * 4;
-          cr = l0[0];
-          cg = l0[1];
-          cb = l0[2];
-          ca = l0[3];
-          for (int kk = lo_k[c]; kk <= hi_k[c]; ++kk) {
+          const float4 l0 =
+              __ldg(reinterpret_cast<const float4*>(p.lut) + c * nk + lo);
+          cr = l0.x;
+          cg = l0.y;
+          cb = l0.z;
+          ca = l0.w;
+          // texels past floor(u) add exact zeros
+          const int top = min((int)floorf(u), nk - 2);
+          const float4* d4 = t_sd + c * nk + 1;
+          for (int kk = lo; kk <= top; ++kk) {
             const float ramp = fminf(fmaxf(u - (float)kk, 0.f), 1.f);
-            const float* d = p.dlut + ((size_t)c * nk + kk + 1) * 4;
-            cr = cr + ramp * d[0];
-            cg = cg + ramp * d[1];
-            cb = cb + ramp * d[2];
-            ca = ca + ramp * d[3];
+            const float4 d = d4[kk];
+            cr = cr + ramp * d.x;
+            cg = cg + ramp * d.y;
+            cb = cb + ramp * d.z;
+            ca = ca + ramp * d.w;
           }
         }
         if (p.compressed && ((p.tau_mask >> c) & 1)) {
@@ -302,33 +460,52 @@ sweep_kernel(const Params p) {
         slab_b = slab_b + contrib * cb;
         slab_a = slab_a + contrib;
       }
-      p.out_r[idx] = p.out_r[idx] + trun * slab_r;
-      p.out_g[idx] = p.out_g[idx] + trun * slab_g;
-      p.out_b[idx] = p.out_b[idx] + trun * slab_b;
+      c_r[q] = c_r[q] + trun * slab_r;
+      c_g[q] = c_g[q] + trun * slab_g;
+      c_b[q] = c_b[q] + trun * slab_b;
       trun = trun * (1.f - slab_a);
-      p.out_t[idx] = trun;
+      c_t[q] = trun;
       tloc = fmaxf(tloc, trun);
-    }
-    tmax = block_max(tloc, red);
+    });
+  }
+
+  span.each([&](int q, int lr, int col) {
+    const size_t idx = (size_t)(row0 + r0 + lr) * p.W + col0 + col;
+    p.out_r[idx] = c_r[q];
+    p.out_g[idx] = c_g[q];
+    p.out_b[idx] = c_b[q];
+    p.out_t[idx] = c_t[q];
+  });
+  // no block leaves while a peer may still read its cluster record
+  cluster.sync();
+}
+
+template <int NCH>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(&sweep_kernel<NCH>);
+}
+
+const void* kernel_for(int n_ch) {
+  switch (n_ch) {  // the channel count is a template argument so the
+                   // per-channel arrays stay in registers
+    case 1: return kernel_of<1>();
+    case 2: return kernel_of<2>();
+    case 3: return kernel_of<3>();
+    case 4: return kernel_of<4>();
+    case 5: return kernel_of<5>();
+    case 6: return kernel_of<6>();
+    case 7: return kernel_of<7>();
+    case 8: return kernel_of<8>();
+    case 9: return kernel_of<9>();
+    default: return kernel_of<10>();
   }
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  Argument packs:
-//   ptrs: ypos, sec, live, act, act_all, prev_t (or 0), dom, kpos, ksd,
-//         kbase, kcum, lut, dlut, scratch_u, out_r, out_g, out_b, out_t,
-//         t_slab (or 0), t_stop (or 0), then one mids pointer per level
-//   ints: n_levels, n_ch, S, H, W, tr, tc, compressed, n_texels, m_knots,
-//         tau_mask, has_pt, has_stop, then ny per level
-//   flts: dz, then cw per level, then lattice y origin per level
-// Returns the launch's cudaError_t (0 = launched).
-extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
-                               const int* ints, int n_ints,
-                               const float* flts, int n_flts,
-                               void* stream) {
+// Fill Params from the ctypes argument packs (see owx_sweep_chunk).
+int unpack(Params& p, const uint64_t* ptrs, int n_ptrs, const int* ints,
+           int n_ints, const float* flts, int n_flts) {
   if (n_ints < 13) return (int)cudaErrorInvalidValue;
-  Params p = {};
+  p = Params{};
   p.n_levels = ints[0];
   p.n_ch = ints[1];
   p.S = ints[2];
@@ -344,14 +521,17 @@ extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
   p.has_stop = ints[12];
   const int L = p.n_levels;
   if (L < 1 || L > kMaxLevels || p.n_ch < 1 || p.n_ch > kMaxCh ||
-      n_ints != 13 + L || n_flts != 1 + 2 * L || n_ptrs != 20 + L ||
-      p.tr < 1 || p.tc < 1 || p.n_texels < 2)
+      n_ints != 13 + L || p.tr < 1 || p.tc < 1 || p.n_texels < 2 ||
+      (p.compressed && p.m_knots < 1))
     return (int)cudaErrorInvalidValue;
   p.n_rt = (p.H + p.tr - 1) / p.tr;
   p.n_ct = (p.W + p.tc - 1) / p.tc;
+  for (int l = 0; l < L; ++l) p.ny[l] = ints[13 + l];
+  if (!ptrs || !flts) return 0;  // the shape alone
+  if (n_flts != 1 + 2 * L || n_ptrs != 20 + L)
+    return (int)cudaErrorInvalidValue;
   p.dz = flts[0];
   for (int l = 0; l < L; ++l) {
-    p.ny[l] = ints[13 + l];
     p.cw[l] = flts[1 + l];
     p.orgy_half[l] = flts[1 + L + l] + 0.5f;
     p.mids[l] = (const float*)ptrs[20 + l];
@@ -369,7 +549,7 @@ extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
   p.kcum = (const float*)ptrs[10];
   p.lut = (const float*)ptrs[11];
   p.dlut = (const float*)ptrs[12];
-  p.scratch_u = (float*)ptrs[13];
+  p.carry_g = (float*)ptrs[13];
   p.out_r = (float*)ptrs[14];
   p.out_g = (float*)ptrs[15];
   p.out_b = (float*)ptrs[16];
@@ -382,15 +562,109 @@ extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
   if (p.compressed ? !(p.kpos && p.ksd && p.kbase && p.kcum)
                    : !(p.lut && p.dlut))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(p.n_ct, p.n_rt);
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (p.n_ch) {  // the channel count is a template argument so the
-                     // per-channel arrays stay in registers
-    case 1: sweep_kernel<1><<<grid, kThreads, 0, st>>>(p); break;
-    case 2: sweep_kernel<2><<<grid, kThreads, 0, st>>>(p); break;
-    case 3: sweep_kernel<3><<<grid, kThreads, 0, st>>>(p); break;
-    default: sweep_kernel<4><<<grid, kThreads, 0, st>>>(p); break;
+  return 0;
+}
+
+// The shape of this chunk's launch on the current device, with the
+// kernel allowed the dynamic shared memory it asks for.
+// The attribute is raised only past what this device's kernel already
+// allows, so a launch captured in a CUDA graph makes no such call.
+int shape_for(const Params& p, Shape& s) {
+  constexpr int kDevices = 64;
+  static int limit_of[kDevices];
+  static int allowed[kDevices][kMaxCh + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidDevice;
+  if (!limit_of[dev]) {
+    err = cudaDeviceGetAttribute(
+        &limit_of[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
   }
+  s = make_shape(p, limit_of[dev]);
+  if (s.smem_bytes > limit_of[dev]) return (int)cudaErrorInvalidValue;
+  if (s.smem_bytes > allowed[dev][p.n_ch]) {
+    err = cudaFuncSetAttribute(kernel_for(p.n_ch),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               s.smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed[dev][p.n_ch] = s.smem_bytes;
+  }
+  return 0;
+}
+
+cudaLaunchConfig_t launch_config(const Shape& s, cudaStream_t st,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = s.grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = s.smem_bytes;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+}  // namespace
+
+// K1's launch shape for a chunk (ints as for owx_sweep_chunk): out[0..8]
+// = cluster size, grid x, grid y, threads per block, dynamic shared
+// bytes, carry on chip (1) or in the global scratch (0), floats of that
+// scratch, rows per block, and (when `occupancy`) the most clusters the
+// card holds at once (else -1).  Returns a cudaError_t.
+extern "C" int owx_sweep_shape(const int* ints, int n_ints, int occupancy,
+                               int* out) {
+  Params p;
+  int err = unpack(p, nullptr, 0, ints, n_ints, nullptr, 0);
+  Shape s;
+  if (!err) err = shape_for(p, s);
+  if (err) return err;
+  int clusters = -1;
+  if (occupancy) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = launch_config(s, 0, attr);
+    err = (int)cudaOccupancyMaxActiveClusters(&clusters,
+                                              kernel_for(p.n_ch), &cfg);
+    if (err) return err;
+  }
+  const int vals[9] = {s.k, (int)s.grid.x, (int)s.grid.y, kThreads,
+                       s.smem_bytes, s.on_chip, s.carry_floats, s.rpb,
+                       clusters};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// Plain C entry point (bound with ctypes).  Argument packs:
+//   ptrs: ypos, sec, live, act, act_all, prev_t (or 0), dom, kpos, ksd,
+//         kbase, kcum, lut, dlut, carry scratch (owx_sweep_shape's floats;
+//         0 when the carry is on chip), out_r, out_g, out_b, out_t,
+//         t_slab (or 0), t_stop (or 0), then one mids pointer per level
+//   ints: n_levels, n_ch, S, H, W, tr, tc, compressed, n_texels, m_knots,
+//         tau_mask, has_pt, has_stop, then ny per level
+//   flts: dz, then cw per level, then lattice y origin per level
+// Returns the launch's cudaError_t (0 = launched).
+extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
+                               const int* ints, int n_ints,
+                               const float* flts, int n_flts,
+                               void* stream) {
+  Params p;
+  int err = unpack(p, ptrs, n_ptrs, ints, n_ints, flts, n_flts);
+  Shape s;
+  if (!err) err = shape_for(p, s);
+  if (err) return err;
+  if (!s.on_chip && !p.carry_g) return (int)cudaErrorInvalidValue;
+  p.shape = s;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(s, (cudaStream_t)stream, attr);
+  void* args[] = {&p};
+  err = (int)cudaLaunchKernelExC(&cfg, kernel_for(p.n_ch), args);
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 

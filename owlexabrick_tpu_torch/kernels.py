@@ -20,9 +20,10 @@ import tempfile
 
 import torch
 
-# must match csrc/sweep.cu, csrc/warp.cu and csrc/xf.cu
+# must match csrc/sweep.cu, csrc/warp.cu and csrc/xf.cu (K1 takes
+# core.constants.MAX_CHANNELS scalar channels)
 MAX_LEVELS = 8
-MAX_CHANNELS = 4
+MAX_COLOR_COMPONENTS = 4  # K2a / K2b: rgba or rgb
 MAX_TEXELS = 128
 MAX_SLABS = 256
 
@@ -121,6 +122,8 @@ def load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.owx_sweep_chunk.argtypes = [vp, ci, vp, ci, vp, ci, vp]
         lib.owx_sweep_chunk.restype = ci
+        lib.owx_sweep_shape.argtypes = [vp, ci, ci, vp]
+        lib.owx_sweep_shape.restype = ci
         ll = ctypes.c_longlong
         lib.owx_warp_pass1.argtypes = [vp, ll, ll, vp, vp, vp, ci, ci, ci,
                                        ci, ci, vp]

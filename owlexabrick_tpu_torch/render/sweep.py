@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.constants import MAX_CHANNELS
 from .xf import active_for_volume_sampling
 
 
@@ -440,6 +441,50 @@ def sweep_chunk_reference(prep: ChunkPrep, sec: torch.Tensor,
     return rgb, untiled(t_run)
 
 
+def _k1_ints(prep: ChunkPrep, tables: ClassifyTables, height: int,
+             width: int, tiles, adaptive_stride: bool, has_pt: bool,
+             has_stop: bool) -> np.ndarray:
+    """K1's int argument pack (``csrc/sweep.cu::owx_sweep_chunk``)."""
+    tr, tc = tile_shape(height, width, tiles, adaptive_stride)
+    m_k = tables.kpos.shape[1] if tables.compressed else 0
+    tau_mask = sum(1 << c for c, t in enumerate(tables.tau)
+                   if t and tables.compressed)
+    ints = [len(prep.mids), prep.mids[0].shape[0] - 1,
+            prep.y_pos.shape[0], height, width, tr, tc,
+            int(tables.compressed), tables.n_texels, m_k, tau_mask,
+            int(has_pt), int(has_stop),
+            *[int(m.shape[2]) for m in prep.mids]]
+    return np.asarray(ints, np.int32)
+
+
+K1_SHAPE_KEYS = ("cluster", "grid_x", "grid_y", "threads", "smem_bytes",
+                 "carry_on_chip", "carry_floats", "rows_per_block",
+                 "max_active_clusters")
+
+
+def k1_launch_shape(prep: ChunkPrep, tables: ClassifyTables, height: int,
+                    width: int, *, tiles=(0, 0),
+                    adaptive_stride: bool = False, has_pt: bool = False,
+                    has_stop: bool = False, occupancy: bool = False):
+    """K1's launch for this chunk on the current card, as a dict of
+    ``K1_SHAPE_KEYS``: blocks per tile (one cluster), the grid, threads
+    per block, dynamic shared memory, whether the carry fits on chip (else
+    the floats of its global scratch), rows per block and, with
+    ``occupancy``, the most clusters the card runs at once."""
+    return _k1_shape(_k1_ints(prep, tables, height, width, tiles,
+                              adaptive_stride, has_pt, has_stop), occupancy)
+
+
+def _k1_shape(int_a: np.ndarray, occupancy: bool = False):
+    from .. import kernels
+
+    out = np.zeros(len(K1_SHAPE_KEYS), np.int32)
+    kernels.launch("owx_sweep_shape", "K1",
+                   int_a.ctypes.data_as(ctypes.c_void_p), len(int_a),
+                   int(occupancy), out.ctypes.data_as(ctypes.c_void_p))
+    return dict(zip(K1_SHAPE_KEYS, out.tolist()))
+
+
 def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
                      live: torch.Tensor, tables: ClassifyTables, dz,
                      height: int, width: int, *, act_f, act_all_f,
@@ -459,9 +504,8 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
     s_ = prep.y_pos.shape[0]
     if not 1 <= n_lv <= kernels.MAX_LEVELS:
         raise ValueError(f"{n_lv} levels; K1 takes 1..{kernels.MAX_LEVELS}")
-    if not 1 <= n_ch <= kernels.MAX_CHANNELS:
-        raise ValueError(
-            f"{n_ch} channels; K1 takes 1..{kernels.MAX_CHANNELS}")
+    if not 1 <= n_ch <= MAX_CHANNELS:
+        raise ValueError(f"{n_ch} channels; K1 takes 1..{MAX_CHANNELS}")
     tr, tc = tile_shape(h, w, tiles, adaptive_stride)
     n_rt, n_ct = -(-h // tr), -(-w // tc)
 
@@ -492,28 +536,27 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
         check("kbase", tables.kbase, (n_ch, 4))
         check("kcum", tables.kcum, (n_ch, m_k + 1, 8))
     else:
-        m_k = 0
         check("lut", tables.lut, (n_ch, tables.n_texels, 4))
         check("dlut", tables.dlut, (n_ch, tables.n_texels, 4))
 
+    int_a = _k1_ints(prep, tables, h, w, tiles, adaptive_stride,
+                     prev_trans is not None, t_stop is not None)
+    shape = _k1_shape(int_a)
     out = torch.empty((4, h, w), dtype=torch.float32, device=dev)
-    scratch = torch.empty((n_ch, h, w), dtype=torch.float32, device=dev)
-    tau_mask = sum(1 << c for c, t in enumerate(tables.tau)
-                   if t and tables.compressed)
+    # the carry's global scratch, for a tile whose carry does not fit in
+    # shared memory (none at the main path's tiles)
+    carry = (torch.empty(shape["carry_floats"], dtype=torch.float32,
+                         device=dev) if shape["carry_floats"] else None)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
     ptrs = [prep.y_pos, sec, live_f, act_f, act_all_f, prev_trans,
             tables.domains, tables.kpos, tables.ksd, tables.kbase,
-            tables.kcum, tables.lut, tables.dlut, scratch,
+            tables.kcum, tables.lut, tables.dlut, carry,
             out[0], out[1], out[2], out[3], t_slab, t_stop_img, *prep.mids]
-    ints = [n_lv, n_ch, s_, h, w, tr, tc, int(tables.compressed),
-            tables.n_texels, m_k, tau_mask, int(prev_trans is not None),
-            int(t_stop is not None), *[int(m.shape[2]) for m in prep.mids]]
     flts = [np.float32(dz), *prep.cell_widths, *prep.origins_y]
     ptr_a = np.asarray([ptr(t) for t in ptrs], np.uint64)
-    int_a = np.asarray(ints, np.int32)
     flt_a = np.asarray(flts, np.float32)
     kernels.launch("owx_sweep_chunk", "K1",
                    ptr_a.ctypes.data_as(ctypes.c_void_p), len(ptr_a),

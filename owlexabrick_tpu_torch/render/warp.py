@@ -252,8 +252,9 @@ def warp_pass1_cuda(rgba_i, wj0, params, sw, height: int, bj: int):
     _check_window(sw, bj, sw.height)
     iw, ih = sw.width, sw.height
     c = rgba_i.shape[1]
-    if not 1 <= c <= kernels.MAX_CHANNELS:
-        raise ValueError(f"{c} channels; K2 takes 1..{kernels.MAX_CHANNELS}")
+    if not 1 <= c <= kernels.MAX_COLOR_COMPONENTS:
+        raise ValueError(f"{c} channels; K2 takes "
+                         f"1..{kernels.MAX_COLOR_COMPONENTS}")
     n_vt, n_at = -(-height // _TR), iw // _TC
     if (rgba_i.device != dev or rgba_i.dtype != torch.float32
             or tuple(rgba_i.shape) != (ih * iw, c)):
@@ -290,8 +291,9 @@ def warp_pass2_cuda(v_img, wi0, params, sw, width: int, height: int,
     _check_window(sw, bi, sw.width)
     iw = sw.width
     c = v_img.shape[0]
-    if not 1 <= c <= kernels.MAX_CHANNELS:
-        raise ValueError(f"{c} channels; K2 takes 1..{kernels.MAX_CHANNELS}")
+    if not 1 <= c <= kernels.MAX_COLOR_COMPONENTS:
+        raise ValueError(f"{c} channels; K2 takes "
+                         f"1..{kernels.MAX_COLOR_COMPONENTS}")
     n_vt, n_ut = -(-height // _TR), -(-width // _TC)
     kernels.check_tensor("v_img", v_img, dev, (c, n_vt * _TR, iw))
     kernels.check_tensor("wi0", wi0, dev, (n_vt, n_ut), torch.int32)

@@ -30,28 +30,31 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("stop", [False, True], ids=["free", "stop"])
-@pytest.mark.parametrize("dense", [False, True], ids=["knots", "dense"])
-@pytest.mark.parametrize("carry", [False, True], ids=["fresh", "carried"])
-def test_k1_matches_plain_version(cuda, dense, carry, stop):
+def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES):
+    """K1 and its plain twin on one seeded chunk; returns K1's launch
+    shape after checking every output value within 1e-5."""
     from owlexabrick_tpu_torch.render.slabs import compress_pwl
 
-    d = seeded_inputs(5)
-    mids = [torch.from_numpy(np.stack([v, m])).to(cuda) for v, m in d["mids"]]
-    lut = torch.from_numpy(d["lut"]).to(cuda)
+    d = seeded_inputs(5, channels=channels)
+    luts_np = d.get("luts", [d["lut"]])
+    mids = [torch.from_numpy(np.concatenate([v.reshape(-1, *m.shape),
+                                             m[None]])).to(cuda)
+            for v, m in d["mids"]]
+    luts = [torch.from_numpy(lut).to(cuda) for lut in luts_np]
     dom = torch.from_numpy(d["dom"]).to(cuda)
-    knots = None if dense else compress_pwl([d["lut"]])
+    knots = None if dense else compress_pwl(luts_np)
+    assert dense or knots is not None
     prep = PS.prepare_chunk(
         mids, ORG_Y, CWS, torch.from_numpy(d["y_pos"]).to(cuda), H, W,
-        tiles=TILES, adaptive_stride=True,
+        tiles=tiles, adaptive_stride=True,
         tf_cull=([torch.from_numpy(v).to(cuda) for v in d["vr"]], (1, 1)))
     live = torch.from_numpy(d["live"]).to(cuda)
-    act_f, act_all_f = PS.combine_activity(prep, live, [lut], dom,
+    act_f, act_all_f = PS.combine_activity(prep, live, luts, dom,
                                            adaptive_stride=True)
-    tables = PS.pack_luts([lut], dom, knots, cuda)
+    tables = PS.pack_luts(luts, dom, knots, cuda)
     args = (prep, torch.from_numpy(d["sec"]).to(cuda), live, tables,
             np.float32(0.75), H, W)
-    kw = dict(act_f=act_f, act_all_f=act_all_f, tiles=TILES,
+    kw = dict(act_f=act_f, act_all_f=act_all_f, tiles=tiles,
               adaptive_stride=True,
               prev_trans=(torch.from_numpy(d["pt"]).to(cuda) if carry
                           else None))
@@ -75,6 +78,35 @@ def test_k1_matches_plain_version(cuda, dense, carry, stop):
     p = torch.cat([rgb_p, t_p[None]])
     assert torch.isfinite(k).all()
     assert float((k - p).abs().max()) < 1e-5
+    return PS.k1_launch_shape(prep, tables, H, W, tiles=tiles,
+                              adaptive_stride=True, has_pt=carry,
+                              has_stop=stop)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 6])
+@pytest.mark.parametrize("stop", [False, True], ids=["free", "stop"])
+@pytest.mark.parametrize("dense", [False, True], ids=["knots", "dense"])
+@pytest.mark.parametrize("carry", [False, True], ids=["fresh", "carried"])
+def test_k1_matches_plain_version(cuda, dense, carry, stop, channels):
+    shape = _k1_against_plain(cuda, dense, carry, stop, channels)
+    assert shape["carry_on_chip"] == 1 and shape["cluster"] > 1
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["fresh", "carried"])
+def test_k1_ragged_row_tiles_match_plain_version(cuda, carry):
+    """16-row tiles over 24 rows: the second row of tiles is half past the
+    image, so some of its cluster's blocks hold no pixel at all and enter
+    the tile max only through their out-of-bounds lanes."""
+    shape = _k1_against_plain(cuda, False, carry, True, 2, tiles=(16, 16))
+    assert shape["rows_per_block"] * shape["cluster"] == 16
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["knots", "dense"])
+def test_k1_carry_in_global_memory_matches_plain_version(cuda, dense):
+    """A tile whose carry does not fit in shared memory (64x1024 at six
+    channels, most of it past the image) keeps it in the global scratch."""
+    shape = _k1_against_plain(cuda, dense, True, True, 6, tiles=(64, 1024))
+    assert shape["carry_on_chip"] == 0 and shape["carry_floats"] > 0
 
 
 def test_main_path_on_card_matches_cpu(cuda):

@@ -12,7 +12,12 @@ ORG_Y = (0.0, 2.0)
 NY = (24, 8)
 
 
-def seeded_inputs(seed):
+def seeded_inputs(seed, channels=1):
+    """Seeded chunk inputs; ``channels`` > 1 adds channels 1.. (their
+    values, LUTs, domains and TF-cull bounds) from a second stream, so
+    channel 0's inputs are the same at every count.  ``mids`` holds per
+    level (channel values, mask); the values are (S, ny, W) for one
+    channel, (C, S, ny, W) for more."""
     rng = np.random.default_rng(seed)
     mids = []
     for ny in NY:
@@ -41,5 +46,35 @@ def seeded_inputs(seed):
     sec = (1.0 + 0.2 * rng.uniform(size=(H, W))).astype(np.float32)
     pt = rng.uniform(0.2, 1.0, (H, W)).astype(np.float32)
     pt[:8, :16] = 0.001  # a tile earlier chunks saturated
-    return dict(mids=mids, y_pos=y_pos, live=live, vr=vr, lut=lut,
-                dom=np.asarray([[0.0, 1.0]], np.float32), sec=sec, pt=pt)
+    d = dict(mids=mids, y_pos=y_pos, live=live, vr=vr, lut=lut,
+             dom=np.asarray([[0.0, 1.0]], np.float32), sec=sec, pt=pt)
+    if channels > 1:
+        _add_channels(d, np.random.default_rng(seed + 1000), channels)
+    return d
+
+
+def _add_channels(d, rng, channels):
+    """Channels 1.. of a multi-channel chunk: values of their own under
+    the shared mask, each its own colormap, opacity ramp and domain (so
+    the compressed knots differ per channel)."""
+    maps = ("Paraview Cool Warm", "Matplotlib Plasma", "Blackbody",
+            "Rainbow", "Ice Fire", "Matplotlib Virdis", "Blue Gold",
+            "Covise", "HSV")
+    extra = range(1, channels)
+    d["mids"] = [(np.stack([v] + [
+        (m * rng.uniform(0.0, 1.5, m.shape)).astype(np.float32)
+        for _ in extra]), m) for v, m in d["mids"]]
+    d["vr"] = [np.concatenate([r] + [np.sort(rng.uniform(
+        0.0, 1.5, r.shape[1:]).astype(np.float32), -1)[None]
+        for _ in extra]) for r in d["vr"]]
+    d["luts"] = [d["lut"]]
+    doms = [d["dom"][0]]
+    for c in extra:
+        lo = rng.uniform(-0.4, 0.6)
+        opac = np.clip(np.linspace(lo, 1.0 - 0.05 * c, 128), 0, 1)
+        lut = np.concatenate([colormap_colors(maps[c - 1], 128),
+                              opac[:, None]], 1).astype(np.float32)
+        lut[:, 3] *= np.float32(0.3 + 0.1 * c)
+        d["luts"].append(lut)
+        doms.append(np.asarray([0.1 * c, 1.2 + 0.05 * c], np.float32))
+    d["dom"] = np.stack(doms)
