@@ -1,6 +1,6 @@
-"""Benchmark scenes (the port of ``owlexabrick_tpu/bench_scene.py:13,
-52, 207``): a synthetic multi-level AMR volume -> raw2cells threshold
-collapse -> level grids.
+"""Benchmark scenes (the port of ``owlexabrick_tpu/bench_scene.py:13-97,
+207``): a synthetic multi-level AMR volume -> raw2cells threshold
+collapse -> level grids; the exajet pattern also as streamed cells.
 
 ``slab_scene_grids`` builds the level grids straight from the cells
 (``level_grids_from_cells``): the bricks only partition the cells and
@@ -32,31 +32,72 @@ def synthetic_volume(n: int = 64) -> np.ndarray:
     return np.asarray(v, np.float32)
 
 
-def exajet_pattern_volume(n: int = 256) -> np.ndarray:
-    """Exajet-pattern field as a dense (n, n, n) volume in [-1, 1]: a
-    thin wavy sheet with a sharp gradient across it, in a smooth
-    background below the collapse threshold, so only the sheet forces
-    refinement (geometry-fitted AMR; one wing of the JAX package's
-    ``_exajet_field``)."""
-    ax = np.linspace(-1, 1, n, dtype=np.float32)
-    z, y, x = ax[:, None, None], ax[None, :, None], ax[None, None, :]
-    w = np.float32(6.0 / n)
+def _exajet_field(z, y, x, n: int, wings: int = 1) -> np.ndarray:
+    """The exajet-pattern analytic field on broadcastable (z, y, x) grids
+    in [-1, 1] units: ``wings`` thin wavy sheets with a sharp gradient
+    across each, in a smooth background whose per-coarse-cell variation
+    stays below the raw2cells collapse threshold (0.004), so only the
+    sheets force refinement (geometry-fitted AMR)."""
+    w = np.float32(6.0 / n)  # a few finest cells thick
     sheet = 0.25 * np.sin(2.4 * x) * np.cos(1.7 * z) - 0.15 * x
     d = y - sheet
     v = 1.0 / (1.0 + np.exp(np.clip(-d / w, -60.0, 60.0)))
+    if wings >= 2:
+        # a second wing, phase-shifted so the sheets stay apart in y
+        sheet2 = (0.2 * np.sin(2.4 * x + 2.0) * np.cos(1.7 * z + 1.1)
+                  + 0.45 - 0.1 * x)
+        d2 = y - sheet2
+        v += 1.0 / (1.0 + np.exp(np.clip(-d2 / w, -60.0, 60.0)))
     v += 0.04 * np.exp(-2.0 * (x * x + z * z))
     v += 0.02 * np.exp(-8.0 * ((x - 0.5) ** 2 + (y - 0.5) ** 2 + z * z))
     return np.asarray(v, np.float32)
 
 
+def exajet_pattern_volume(n: int = 256, wings: int = 1) -> np.ndarray:
+    """Exajet-pattern field as a dense (n, n, n) volume: under threshold
+    collapse the finest level hugs the wing sheets (fine cells on
+    geometry, coarse everywhere else)."""
+    ax = np.linspace(-1, 1, n, dtype=np.float32)
+    return _exajet_field(ax[:, None, None], ax[None, :, None],
+                         ax[None, None, :], n, wings)
+
+
+def exajet_pattern_cells(n: int, threshold: float = 0.004,
+                         max_level: int = 3, wings: int = 1):
+    """The cells of ``exajet_pattern_volume(n, wings)`` without the dense
+    volume (4 GB at 1024^3): the raw2cells collapse is local to
+    2^max_level-aligned root blocks, so the field streams in z slices of
+    2^max_level planes, each collapsed on its own with its cells' z
+    offset.  Equal to ``volume_to_cells(exajet_pattern_volume(n, wings),
+    threshold, max_level)``.  Returns (lower (N, 3) int32, level,
+    scalars)."""
+    w = 1 << max_level
+    if n % w:
+        raise ValueError(f"n={n} must be a multiple of 2^max_level={w}")
+    ax = np.linspace(-1, 1, n, dtype=np.float32)
+    y = ax[None, :, None]
+    x = ax[None, None, :]
+    lowers, levels, scals = [], [], []
+    for z0 in range(0, n, w):
+        v = _exajet_field(ax[z0:z0 + w][:, None, None], y, x, n, wings)
+        lo, lv, sc = volume_to_cells(v, threshold, max_level)
+        lo[:, 2] += z0
+        lowers.append(lo)
+        levels.append(lv)
+        scals.append(sc)
+    return (np.concatenate(lowers), np.concatenate(levels),
+            np.concatenate(scals))
+
+
 def slab_scene_grids(kind: str, n: int, threshold: float = 0.004,
-                     max_level: int = 3, device="cuda"):
-    """Level grids (sweep axis z) of the ``kind`` ("blobs" or "exajet")
-    bench scene at ``n``^3, on ``device`` (the card unless the caller
-    asks for the CPU).  Returns (grids, meta) with n_cells, build_s and
-    value_max."""
+                     max_level: int = 3, device="cuda", wings: int = 1):
+    """Level grids (sweep axis z) of the ``kind`` ("blobs" or "exajet",
+    with ``wings`` sheets) bench scene at ``n``^3, on ``device`` (the
+    card unless the caller asks for the CPU).  Returns (grids, meta) with
+    n_cells, build_s and value_max."""
     t0 = time.time()
-    vol = exajet_pattern_volume(n) if kind == "exajet" else synthetic_volume(n)
+    vol = (exajet_pattern_volume(n, wings) if kind == "exajet"
+           else synthetic_volume(n))
     lower, level, scal = volume_to_cells(vol, threshold, max_level)
     grids = level_grids_from_cells(lower, level, scal[None], axis=2,
                                    device=device)

@@ -1,13 +1,14 @@
-// K6 for Hopper: the x-tent resample of one level's z-lerped lattice
-// blocks to screen columns (the x stage of the megakernel lane's camera
-// products).
+// K6 for Hopper: the x-tent resample of the z-lerped lattice blocks of
+// every level of a chunk to screen columns (the x stage of the megakernel
+// lane's camera products).
 //
 // Replaces the TPU kernel owlexabrick_tpu/render/pallas_mids.py
 // _make_kernel (:47, pallas_call :121 in xresample_mids).  Its
-// plain-torch twin is render/mids.py::xresample_mids_reference.
+// plain-torch twin is render/mids.py::xresample_mids_reference, per
+// level.
 //
-//   per component c (channel mids, then the mask mid), slab s, lattice
-//   row y and screen column j:
+//   per level, component c (channel mids, then the mask mid), slab s,
+//   lattice row y and screen column j:
 //     out[c, s, y, j] = w0 * zv[c, s, y, k0] + w1 * zv[c, s, y, k0 + 1]
 //   with k0 = floor(qx[s, j]) and the tent weights max(0, 1 - |qx - k|)
 //   for k in [0, nx), zero outside (the same two entries the JAX
@@ -17,37 +18,98 @@
 // contracted each (ny, nx) block against it on the MXU, with rows padded
 // to 8, columns padded at -2 to the tile multiple and a bf16 hi/lo split
 // option.  None of that is needed here: a column's tent has two nonzero
-// entries, so each thread takes one (slab, column), computes both taps
-// and their weights once, and loops over lattice rows and components,
-// reading two floats and writing one per row.  The output is the port's
-// own mids layout (C+1, S, ny, W), unpadded, float32 only.
+// entries.  The output is the port's own mids layout (C+1, S, ny, W),
+// unpadded, float32 only.
 //
-// What bounds it on this card: bytes.  It writes 4 (C+1) S ny W bytes
-// and reads the (C+1) S ny nx blocks at least once, against 3 flops per
-// output value.  Neighbouring threads take neighbouring columns, so the
-// writes are coalesced and the two reads of a row fall in the same few
-// cache lines; rows are split over the grid's z dimension so that
-// enough blocks are in flight (one level's S x W columns alone are ~180
-// blocks at 1080p).
+// What bounds it on this card: bytes.  Per level it writes 4 (C+1) S ny W
+// bytes and reads the (C+1) S ny nx blocks, with nx several times below
+// W, against 3 flops per output value; the writes are nearly all of it.
+// The design (xresample_levels_kernel, variant 2, the one the render path
+// launches):
 //
-// Built with -fmad=false so each multiply and add rounds like the plain
-// torch version's separate ops; the kernel allocates nothing and
-// launches on the caller's stream.
+// * One launch per chunk for every level.  The levels' pointers and
+//   sizes travel by value (__grid_constant__) in a table of up to
+//   kMaxLevels entries, with the first block of each level in one
+//   flattened grid; a block finds its level from the prefix offsets.  A
+//   chunk's levels are small (the 64^3 headline's ny = 64, 32, 16 and 8
+//   at S = 12), and one launch per level left most SMs idle on all but
+//   the largest and paid a launch each.
+// * One thread per screen column, kRows lattice rows per block: the
+//   thread's two taps and weights are computed once, in registers, and
+//   its rows' tap pairs are loaded kUnroll rows at a time, before any of
+//   them is stored, over restrict pointers, so that each warp has
+//   2 kUnroll loads in flight instead of one row's two.  A warp's 32
+//   columns reach ~4 lattice columns, so the loads hit L1 after a
+//   block's first touch; a warp's 4-byte stores fill whole 128-byte
+//   lines of a row.
+// * Block counts per chunk (kThreads columns x kRows rows, 256 threads,
+//   56 registers: 4 blocks per SM, 528 at once on 132 SMs): 8 column
+//   tiles x S x sum over levels of ceil(ny / 16); the 64^3 headline
+//   (S = 12; ny 64, 32, 16, 8): 8 x 12 x 8 = 768 blocks, 1.5 waves; the
+//   256^3 blobs scene (S = 24; ny 240, 128, 64, 32): 8 x 24 x 29 = 5,568
+//   blocks, 10.5 waves.
+//
+// On the H100 (chip_smoke.py --k6-only, PERF.md section 6) torch's fill_
+// of the same outputs runs at about the bytes bound; what separates this
+// kernel from it is the rows' loads, and starting them kUnroll rows at a
+// time is what moved it.  Three more bodies stay so that chip_smoke.py
+// can time the design against them on the same inputs:
+// the earlier one-launch-per-level kernel (owx_xresample_mids); the level
+// table with the same per-thread body without the unrolled loads
+// (variant 0); and the level table with tiles staged in shared memory
+// (variant 1: per (level, slab, kTileRows x kTileCols) tile, the lattice
+// window its columns reach copied with cp.async, 16 bytes where the
+// source's 16-byte grouping allows, else 4, one wait, 4 columns per
+// thread from shared memory and one float4 store per (component, row); a
+// tile whose window outgrows kStageFloats reads through L1, counted in
+// l1_tiles when given).  The staged body was slower on every shape
+// timed: its 78 registers leave 3 blocks per SM to hide each block's qx
+// load, window copy and wait, which come one after another.  Every body
+// computes w0 * a + w1 * b in that order, built with -fmad=false, so all
+// four give the same bits as the plain twin.  Nothing is allocated here;
+// every launch is on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
+constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-constexpr int kRows = 16;  // lattice rows per thread
+constexpr int kRows = 16;  // the per-thread bodies: rows per block
+constexpr int kUnroll = 8;  // rows whose loads are started together
+constexpr int kTileRows = 16;
+constexpr int kTileCols = 128;   // 32 lanes x 4 columns
+constexpr int kWarps = kThreads / 32;
+constexpr int kStageFloats = 6144;  // 24 KB: 8 blocks of 256 threads per SM
+
+struct Tap {
+  int i0, i1;
+  float w0, w1;
+};
+
+// the tent's two lattice points at q on an axis of n points: clamped
+// indices and weights (zero outside [0, n)), as mids.py::tent_taps
+__device__ __forceinline__ Tap tent(float q, int n) {
+  const float kf = floorf(q);
+  const int k0 = (int)kf;
+  const int k1 = k0 + 1;
+  Tap t;
+  t.w0 = (k0 >= 0 && k0 < n) ? fmaxf(1.f - fabsf(q - kf), 0.f) : 0.f;
+  t.w1 = (k1 >= 0 && k1 < n) ? fmaxf(1.f - fabsf(q - (kf + 1.f)), 0.f)
+                             : 0.f;
+  t.i0 = min(max(k0, 0), n - 1);
+  t.i1 = min(max(k1, 0), n - 1);
+  return t;
+}
 
 struct MidsParams {
   int n_comp, S, ny, nx, W;
 };
 
-// grid (ceil(W / kThreads), S, ceil(ny / kRows)); zvs (C+1, S, ny, nx),
-// qx (S, W), out (C+1, S, ny, W)
+// the per-level kernel: grid (ceil(W / kThreads), S, ceil(ny / kRows));
+// zvs (C+1, S, ny, nx), qx (S, W), out (C+1, S, ny, W)
 __global__ void __launch_bounds__(kThreads)
 xresample_mids_kernel(const float* __restrict__ zvs,
                       const float* __restrict__ qx,
@@ -57,32 +119,226 @@ xresample_mids_kernel(const float* __restrict__ zvs,
   const int s = blockIdx.y;
   const int y0 = blockIdx.z * kRows;
   const int y1 = min(y0 + kRows, p.ny);
-  const float q = qx[(size_t)s * p.W + j];
-  const float kf = floorf(q);
-  const int k0 = (int)kf;
-  const int k1 = k0 + 1;
-  const float w0 = (k0 >= 0 && k0 < p.nx) ? fmaxf(1.f - fabsf(q - kf), 0.f)
-                                          : 0.f;
-  const float w1 = (k1 >= 0 && k1 < p.nx)
-                       ? fmaxf(1.f - fabsf(q - (kf + 1.f)), 0.f)
-                       : 0.f;
-  const int i0 = min(max(k0, 0), p.nx - 1);
-  const int i1 = min(max(k1, 0), p.nx - 1);
+  const Tap t = tent(qx[(size_t)s * p.W + j], p.nx);
   for (int c = 0; c < p.n_comp; ++c) {
     const size_t plane = (size_t)c * p.S + s;
     const float* src = zvs + plane * p.ny * p.nx;
     float* dst = out + plane * p.ny * p.W + j;
     for (int y = y0; y < y1; ++y) {
       const float* row = src + (size_t)y * p.nx;
-      dst[(size_t)y * p.W] = w0 * __ldg(row + i0) + w1 * __ldg(row + i1);
+      dst[(size_t)y * p.W] =
+          t.w0 * __ldg(row + t.i0) + t.w1 * __ldg(row + t.i1);
+    }
+  }
+}
+
+struct LevelEntry {
+  const float* zvs;  // (C+1, S, ny, nx)
+  const float* qx;   // (S, W)
+  float* out;        // (C+1, S, ny, W)
+  int ny, nx, row_tiles, block0;
+};
+
+struct LevelTable {
+  LevelEntry lv[kMaxLevels];
+  int n_levels, n_comp, S, W, col_tiles;
+  int* l1_tiles;  // tiles that read through L1, or null
+};
+
+struct TileId {
+  int level, s, ct, rt;
+};
+
+// a flattened block's level (the last whose first block it has reached)
+// and its (slab, row tile, column tile), column tiles fastest
+__device__ __forceinline__ TileId tile_of(const LevelTable& t, int b) {
+  TileId id;
+  id.level = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i)
+    if (i < t.n_levels && b >= t.lv[i].block0) id.level = i;
+  int local = b - t.lv[id.level].block0;
+  id.ct = local % t.col_tiles;
+  local /= t.col_tiles;
+  id.rt = local % t.lv[id.level].row_tiles;
+  id.s = local / t.lv[id.level].row_tiles;
+  return id;
+}
+
+// variant 0: the level table with one thread per column (tiles of
+// kThreads columns x kRows rows), both taps read through L1, 4-byte
+// stores
+__global__ void __launch_bounds__(kThreads)
+xresample_levels_thread_kernel(const __grid_constant__ LevelTable t) {
+  const TileId id = tile_of(t, blockIdx.x);
+  const LevelEntry& L = t.lv[id.level];
+  const int j = id.ct * kThreads + threadIdx.x;
+  if (j >= t.W) return;
+  const int y0 = id.rt * kRows;
+  const int y1 = min(y0 + kRows, L.ny);
+  const Tap tp = tent(L.qx[(size_t)id.s * t.W + j], L.nx);
+  for (int c = 0; c < t.n_comp; ++c) {
+    const size_t plane = (size_t)c * t.S + id.s;
+    const float* src = L.zvs + plane * L.ny * L.nx;
+    float* dst = L.out + plane * L.ny * t.W + j;
+    for (int y = y0; y < y1; ++y) {
+      const float* row = src + (size_t)y * L.nx;
+      dst[(size_t)y * t.W] =
+          tp.w0 * __ldg(row + tp.i0) + tp.w1 * __ldg(row + tp.i1);
+    }
+  }
+}
+
+// variant 2, the kept design: the per-thread body with its rows' tap
+// pairs loaded kU rows at a time over restrict pointers.  The minimum
+// of 1 block per SM in the launch bounds matters: without it the same
+// loop built to 40 registers and ran slower than variant 0 on the H100
+template <int kU>
+__global__ void __launch_bounds__(kThreads, 1)
+xresample_levels_kernel(const __grid_constant__ LevelTable t) {
+  const TileId id = tile_of(t, blockIdx.x);
+  const LevelEntry& L = t.lv[id.level];
+  const int j = id.ct * kThreads + threadIdx.x;
+  if (j >= t.W) return;
+  const int nx = L.nx, ny = L.ny, W = t.W;
+  const int y0 = id.rt * kRows;
+  const int y1 = min(y0 + kRows, ny);
+  const Tap tp = tent(__ldg(L.qx + (size_t)id.s * W + j), nx);
+  for (int c = 0; c < t.n_comp; ++c) {
+    const size_t plane = (size_t)c * t.S + id.s;
+    const float* __restrict__ src = L.zvs + plane * ny * nx + tp.i0;
+    float* __restrict__ dst = L.out + plane * ny * W + j;
+    const int d = tp.i1 - tp.i0;
+#pragma unroll kU
+    for (int y = y0; y < y1; ++y) {
+      const float* row = src + y * nx;
+      dst[(size_t)y * W] = tp.w0 * __ldg(row) + tp.w1 * __ldg(row + d);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// variant 1: tiles of kTileRows x kTileCols, the lattice window staged
+// in shared memory, float4 stores
+__global__ void __launch_bounds__(kThreads)
+xresample_levels_staged_kernel(const __grid_constant__ LevelTable t) {
+  __shared__ __align__(16) float stage[kStageFloats];
+  const TileId id = tile_of(t, blockIdx.x);
+  const LevelEntry& L = t.lv[id.level];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = t.W, nx = L.nx, ny = L.ny, S = t.S, s = id.s;
+  const int j0 = id.ct * kTileCols + lane * 4;
+  const int nvalid = min(4, W - j0);  // <= 0 past a ragged W
+
+  // this thread's 4 columns' taps, and the window every lane reaches
+  // (all warps hold the same columns, so each finds it alone)
+  Tap tp[4];
+  int k_lo = nx, k_hi = -1;
+  const float* qrow = L.qx + (size_t)s * W;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (u < nvalid) {
+      tp[u] = tent(__ldg(qrow + j0 + u), nx);
+      k_lo = min(k_lo, tp[u].i0);
+      k_hi = max(k_hi, tp[u].i1);
+    } else {
+      tp[u] = Tap{0, 0, 0.f, 0.f};
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    k_lo = min(k_lo, __shfl_xor_sync(0xffffffffu, k_lo, o));
+    k_hi = max(k_hi, __shfl_xor_sync(0xffffffffu, k_hi, o));
+  }
+  const int win = k_hi - k_lo + 1;
+  const int y0 = id.rt * kTileRows;
+  const int nrows = min(kTileRows, ny - y0);
+  // a segment is one (component, row) of the window; its first float
+  // sits at its source's phase in a 16-byte group, so that 16-byte
+  // groups of the source land on 16-byte groups of shared memory
+  const int stride = (win + 6) & ~3;  // >= win + 3, a multiple of 4
+  const int segs = t.n_comp * nrows;
+  const bool staged = segs * stride <= kStageFloats;  // uniform
+
+  auto seg_src = [&](int c, int r) {
+    return L.zvs + (((size_t)c * S + s) * ny + y0 + r) * nx + k_lo;
+  };
+  auto phase = [](const float* p) { return (int)(((uintptr_t)p >> 2) & 3); };
+
+  if (staged) {
+    const int groups = stride >> 2;
+    for (int it = threadIdx.x; it < segs * groups; it += kThreads) {
+      const int seg = it / groups;
+      const int g = it - seg * groups;
+      const int c = seg / nrows;
+      const float* src = seg_src(c, seg - c * nrows);
+      const int ph = phase(src);
+      float* dst = stage + seg * stride + ph;
+      const int e0 = 4 * g - ph;  // this group's first element
+      if (e0 >= win) continue;
+      if (e0 >= 0 && e0 + 4 <= win) {
+        cp_async16(dst + e0, src + e0);
+      } else {
+        for (int e = max(e0, 0); e < min(e0 + 4, win); ++e)
+          cp_async4(dst + e, src + e);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+  } else if (threadIdx.x == 0 && t.l1_tiles) {
+    atomicAdd(t.l1_tiles, 1);
+  }
+  if (nvalid <= 0) return;
+
+  const bool vec = nvalid == 4 && (W & 3) == 0 &&
+                   (((uintptr_t)L.out) & 15) == 0;
+  for (int r = warp; r < nrows; r += kWarps) {
+    for (int c = 0; c < t.n_comp; ++c) {
+      float v[4];
+      if (staged) {
+        const int seg = c * nrows + r;
+        const float* row = stage + seg * stride + phase(seg_src(c, r));
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = tp[u].w0 * row[tp[u].i0 - k_lo] +
+                 tp[u].w1 * row[tp[u].i1 - k_lo];
+      } else {
+        const float* row = seg_src(c, r) - k_lo;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = tp[u].w0 * __ldg(row + tp[u].i0) +
+                 tp[u].w1 * __ldg(row + tp[u].i1);
+      }
+      float* dst = L.out + (((size_t)c * S + s) * ny + y0 + r) * W + j0;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < nvalid) dst[u] = v[u];
+      }
     }
   }
 }
 
 }  // namespace
 
-// K6: zvs (n_comp, S, ny, nx), qx (S, W), out (n_comp, S, ny, W), all
-// float32 contiguous.  Returns the launch's cudaError_t (0 = launched).
+// The per-level kernel: zvs (n_comp, S, ny, nx), qx (S, W), out (n_comp,
+// S, ny, W), all float32 contiguous.  Returns the launch's cudaError_t
+// (0 = launched).
 extern "C" int owx_xresample_mids(const void* zvs, const void* qx,
                                   void* out, int n_comp, int S, int ny,
                                   int nx, int W, void* stream) {
@@ -93,5 +349,57 @@ extern "C" int owx_xresample_mids(const void* zvs, const void* qx,
   const dim3 grid((W + kThreads - 1) / kThreads, S, (ny + kRows - 1) / kRows);
   xresample_mids_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)zvs, (const float*)qx, (float*)out, p);
+  return (int)cudaGetLastError();
+}
+
+// K6, one launch for n_levels <= kMaxLevels levels of one chunk: per
+// level l, zvs[l] (n_comp, S, ny[l], nx[l]), qx[l] (S, W) and out[l]
+// (n_comp, S, ny[l], W), all float32 contiguous.  variant 2 is the kept
+// body, 0 the per-thread body without unrolled loads, 1 the staged tiles
+// (l1_tiles, an int on the device or null, counts their tiles that read
+// through L1).  Returns the launch's cudaError_t (0 = launched).
+extern "C" int owx_xresample_levels(const void* const* zvs,
+                                    const void* const* qx,
+                                    void* const* out, const int* ny,
+                                    const int* nx, int n_levels, int n_comp,
+                                    int S, int W, int variant,
+                                    void* l1_tiles, void* stream) {
+  if (!zvs || !qx || !out || !ny || !nx || n_levels < 1 ||
+      n_levels > kMaxLevels || n_comp < 1 || S < 1 || W < 1 ||
+      variant < 0 || variant > 2)
+    return (int)cudaErrorInvalidValue;
+  const int cols = variant == 1 ? kTileCols : kThreads;
+  const int rows = variant == 1 ? kTileRows : kRows;
+  LevelTable t = {};
+  t.n_levels = n_levels;
+  t.n_comp = n_comp;
+  t.S = S;
+  t.W = W;
+  t.col_tiles = (W + cols - 1) / cols;
+  t.l1_tiles = (int*)l1_tiles;
+  long long blocks = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    if (!zvs[l] || !qx[l] || !out[l] || ny[l] < 1 || nx[l] < 1)
+      return (int)cudaErrorInvalidValue;
+    LevelEntry& e = t.lv[l];
+    e.zvs = (const float*)zvs[l];
+    e.qx = (const float*)qx[l];
+    e.out = (float*)out[l];
+    e.ny = ny[l];
+    e.nx = nx[l];
+    e.row_tiles = (ny[l] + rows - 1) / rows;
+    e.block0 = (int)blocks;
+    blocks += (long long)t.col_tiles * S * e.row_tiles;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  }
+  const unsigned g = (unsigned)blocks;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (variant == 1)
+    xresample_levels_staged_kernel<<<g, kThreads, 0, st>>>(t);
+  else if (variant == 2)
+    xresample_levels_kernel<kUnroll><<<g, kThreads, 0, st>>>(t);
+  else
+    xresample_levels_thread_kernel<<<(unsigned)blocks, kThreads, 0,
+                                     (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }

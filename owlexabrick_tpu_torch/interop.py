@@ -17,12 +17,15 @@ import torch
 from .render.camera import Camera
 from .render.frame import FrameState
 from .render.shearwarp import ShearWarp
-from .render.slabs import LevelGrids
+from .render.slabs import LevelGrids, render_device
 
 
-def level_grids_from_reference(ref, device="cpu") -> LevelGrids:
+def level_grids_from_reference(ref, device="cuda") -> LevelGrids:
     """The reference's ``LevelGrids`` (numpy or device arrays) as the
-    port's, on ``device``."""
+    port's, on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    device = render_device(device)
+
     def t(a):
         return torch.from_numpy(
             np.ascontiguousarray(np.asarray(a, np.float32))).to(device)

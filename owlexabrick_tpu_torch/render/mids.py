@@ -1,22 +1,22 @@
 """The x stage of the megakernel lane's camera products (the port of
-``owlexabrick_tpu/render/pallas_mids.py``): K6,
-``xresample_mids``, the x-tent resample of one level's z-lerped lattice
-blocks to screen columns.
+``owlexabrick_tpu/render/pallas_mids.py``): K6, the x-tent resample of
+the z-lerped lattice blocks of every level of a chunk to screen columns.
 
-zvs (C+1, S, ny, nx): the channel blocks, then the mask block, z-lerped
-at the chunk's slab planes; qx (S, W): the slab-plane lattice x
-coordinate of every screen column.  Out (C+1, S, ny, W), the port's
-mids layout: per column the two lattice columns k0 = floor(qx), k0 + 1
-weighted max(0, 1 - |qx - k|), zero outside [0, nx) (the JAX package's
-dense tent matrix entries, ``tent_taps``).
+Per level, zvs (C+1, S, ny, nx): the channel blocks, then the mask
+block, z-lerped at the chunk's slab planes; qx (S, W): the slab-plane
+lattice x coordinate of every screen column.  Out (C+1, S, ny, W), the
+port's mids layout: per column the two lattice columns k0 = floor(qx),
+k0 + 1 weighted max(0, 1 - |qx - k|), zero outside [0, nx) (the JAX
+package's dense tent matrix entries, ``tent_taps``).
 
-The plain version (``xresample_mids_reference``), a launcher of the
-hand-written Hopper kernel in ``csrc/mids.cu`` (``xresample_mids_cuda``,
-counting its launches in ``.launches``) and a dispatcher: CPU tensors
-take the plain version, CUDA tensors launch the kernel or raise, and
-``plain=True`` picks the plain version on the card.  None of the TPU
-kernel's layout stays: no 8-row pad, no -2 column pad, no bf16 hi/lo
-split, one launch per level for every component.
+The plain version (``xresample_mids_reference``, per level), a launcher
+of the hand-written Hopper kernel in ``csrc/mids.cu``
+(``xresample_mids_levels_cuda``: one launch for up to
+``K6_MAX_LEVELS`` levels, counting its launches in ``.launches``) and
+dispatchers: CPU tensors take the plain version, CUDA tensors launch the
+kernel or raise, and ``plain=True`` picks the plain version on the card.
+``xresample_mids`` is the same for one level.  None of the TPU kernel's
+layout stays: no 8-row pad, no -2 column pad, no bf16 hi/lo split.
 """
 
 from __future__ import annotations
@@ -60,39 +60,144 @@ def xresample_mids_reference(zvs: torch.Tensor,
     return tap(i0, w0) + tap(i1, w1)
 
 
-def xresample_mids_cuda(zvs: torch.Tensor, qx: torch.Tensor) -> torch.Tensor:
-    """Launch K6 (``csrc/mids.cu``) on the current stream.  Same arguments
-    and result as ``xresample_mids_reference``.  Raises on any input the
-    kernel does not take; never falls back."""
+# must match csrc/mids.cu: levels per launch, the staged body's tile and
+# its shared-memory budget (floats), and the bodies' ids: the kept one
+# (K6_UNROLLED, rows' loads started 8 at a time), and two that
+# chip_smoke.py times beside it (the per-thread body without that, and
+# the staged tiles)
+K6_MAX_LEVELS = 8
+K6_TILE_ROWS, K6_TILE_COLS, K6_STAGE_FLOATS = 16, 128, 6144
+K6_THREAD, K6_STAGED, K6_UNROLLED = 0, 1, 2
+
+
+def xresample_mids_levels_reference(zvs_list, qx_list):
+    """Plain-torch K6 for a chunk's levels: ``xresample_mids_reference``
+    per level."""
+    return [xresample_mids_reference(z, q) for z, q in zip(zvs_list, qx_list)]
+
+
+def _levels_shape(zvs_list, qx_list):
+    """(n_comp, S, W) the levels share; raises on anything else."""
+    if len(zvs_list) != len(qx_list) or not zvs_list:
+        raise ValueError(f"need as many qx as zvs (>= 1), got "
+                         f"{len(zvs_list)} and {len(qx_list)}")
+    for z, q in zip(zvs_list, qx_list):
+        if z.dim() != 4 or q.dim() != 2:
+            raise ValueError(f"zvs: need (C+1, S, ny, nx), qx: (S, W); got "
+                             f"{tuple(z.shape)}, {tuple(q.shape)}")
+    n_comp, s_ = zvs_list[0].shape[:2]
+    w_ = qx_list[0].shape[1]
+    for z, q in zip(zvs_list, qx_list):
+        if tuple(z.shape[:2]) != (n_comp, s_) or tuple(q.shape) != (s_, w_):
+            raise ValueError(f"levels differ in (C+1, S) or W: "
+                             f"{tuple(z.shape)}, {tuple(q.shape)}")
+    return n_comp, s_, w_
+
+
+def xresample_mids_levels_cuda(zvs_list, qx_list,
+                               variant: int = K6_UNROLLED, l1_tiles=None):
+    """Launch K6 (``csrc/mids.cu``) on the current stream, once for every
+    ``K6_MAX_LEVELS`` levels.  Same arguments and result as
+    ``xresample_mids_levels_reference``.  ``variant``: the kept body
+    (``K6_UNROLLED``) or, for timing, ``K6_THREAD`` / ``K6_STAGED``;
+    ``l1_tiles``: an int32 (1,) device tensor to which the staged body
+    adds its tiles that read through L1.  Raises on any input the kernel
+    does not take; never falls back."""
     from .. import kernels
 
-    dev = zvs.device
-    if dev.type != "cuda":
-        raise ValueError(f"xresample_mids_cuda needs CUDA tensors, got {dev}")
-    if zvs.dim() != 4 or qx.dim() != 2:
-        raise ValueError(f"zvs: need (C+1, S, ny, nx), qx: (S, W); got "
-                         f"{tuple(zvs.shape)}, {tuple(qx.shape)}")
-    n_comp, s_, ny, nx = zvs.shape
-    w_ = qx.shape[1]
-    kernels.check_tensor("zvs", zvs, dev, (n_comp, s_, ny, nx))
-    kernels.check_tensor("qx", qx, dev, (s_, w_))
-    out = torch.empty((n_comp, s_, ny, w_), dtype=torch.float32, device=dev)
-    vp = ctypes.c_void_p
-    kernels.launch("owx_xresample_mids", "K6", vp(zvs.data_ptr()),
-                   vp(qx.data_ptr()), vp(out.data_ptr()), n_comp, s_, ny, nx,
-                   w_, kernels.stream_arg(dev))
-    xresample_mids_cuda.launches += 1
-    return out
+    dev = zvs_list[0].device if zvs_list else None
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"xresample_mids_levels_cuda needs CUDA tensors, "
+                         f"got {dev}")
+    n_comp, s_, w_ = _levels_shape(zvs_list, qx_list)
+    for z, q in zip(zvs_list, qx_list):
+        kernels.check_tensor("zvs", z, dev, tuple(z.shape))
+        kernels.check_tensor("qx", q, dev, (s_, w_))
+    if l1_tiles is not None:
+        kernels.check_tensor("l1_tiles", l1_tiles, dev, (1,), torch.int32)
+    outs = [torch.empty((n_comp, s_, z.shape[2], w_), dtype=torch.float32,
+                        device=dev) for z in zvs_list]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for i in range(0, len(zvs_list), K6_MAX_LEVELS):
+        grp = range(i, min(i + K6_MAX_LEVELS, len(zvs_list)))
+        n = len(grp)
+        kernels.launch(
+            "owx_xresample_levels", "K6",
+            (vp * n)(*[zvs_list[l].data_ptr() for l in grp]),
+            (vp * n)(*[qx_list[l].data_ptr() for l in grp]),
+            (vp * n)(*[outs[l].data_ptr() for l in grp]),
+            (ci * n)(*[zvs_list[l].shape[2] for l in grp]),
+            (ci * n)(*[zvs_list[l].shape[3] for l in grp]),
+            n, n_comp, s_, w_, variant,
+            vp(None if l1_tiles is None else l1_tiles.data_ptr()),
+            kernels.stream_arg(dev))
+        xresample_mids_levels_cuda.launches += 1
+    return outs
 
 
-xresample_mids_cuda.launches = 0
+xresample_mids_levels_cuda.launches = 0
+
+
+def xresample_mids_levels(zvs_list, qx_list, plain: bool = False):
+    """K6 for a chunk's levels: the kernel for CUDA tensors, the plain
+    version for CPU tensors (or anywhere when ``plain``, the explicit
+    choice a kernel-vs-plain comparison makes).  Returns the per-level
+    (C+1, S, ny, W) mids."""
+    if plain or zvs_list[0].device.type == "cpu":
+        _levels_shape(zvs_list, qx_list)
+        return xresample_mids_levels_reference(zvs_list, qx_list)
+    return xresample_mids_levels_cuda(zvs_list, qx_list)
 
 
 def xresample_mids(zvs: torch.Tensor, qx: torch.Tensor,
                    plain: bool = False) -> torch.Tensor:
-    """K6 for CUDA tensors, the plain version for CPU tensors (or
-    anywhere when ``plain``, the explicit choice a kernel-vs-plain
-    comparison makes)."""
-    fn = (xresample_mids_reference if plain or zvs.device.type == "cpu"
-          else xresample_mids_cuda)
-    return fn(zvs, qx)
+    """``xresample_mids_levels`` for one level."""
+    return xresample_mids_levels([zvs], [qx], plain=plain)[0]
+
+
+def xresample_mids_per_level_cuda(zvs: torch.Tensor,
+                                  qx: torch.Tensor) -> torch.Tensor:
+    """The one-launch-per-level kernel (``owx_xresample_mids``), which
+    ``chip_smoke.py`` times beside K6; no render path calls it."""
+    from .. import kernels
+
+    dev = zvs.device
+    if dev.type != "cuda":
+        raise ValueError(f"xresample_mids_per_level_cuda needs CUDA "
+                         f"tensors, got {dev}")
+    n_comp, s_, w_ = _levels_shape([zvs], [qx])
+    ny, nx = zvs.shape[2:]
+    kernels.check_tensor("zvs", zvs, dev, (n_comp, s_, ny, nx))
+    kernels.check_tensor("qx", qx, dev, (s_, w_))
+    out = torch.empty((n_comp, s_, ny, w_), dtype=torch.float32, device=dev)
+    vp = ctypes.c_void_p
+    kernels.launch("owx_xresample_mids", "K6 per level", vp(zvs.data_ptr()),
+                   vp(qx.data_ptr()), vp(out.data_ptr()), n_comp, s_, ny,
+                   nx, w_, kernels.stream_arg(dev))
+    return out
+
+
+def k6_l1_tiles(zvs_list, qx_list) -> int:
+    """The staged body's tiles whose lattice window does not fit its
+    shared memory (those read through L1), counted on the host from the
+    same taps: per (level, slab, column tile) the window [min i0, max
+    i1], then per row tile its (C+1) rows x (window + 3, rounded up to 4)
+    floats against ``K6_STAGE_FLOATS``."""
+    n_comp, _, w_ = _levels_shape(zvs_list, qx_list)
+    ct = -(-w_ // K6_TILE_COLS)
+    pad = ct * K6_TILE_COLS - w_
+    count = 0
+    for z, q in zip(zvs_list, qx_list):
+        ny, nx = z.shape[2:]
+        (i0, i1), _, _ = tent_taps(q.float(), nx)
+        lo = torch.nn.functional.pad(i0, (0, pad), value=nx).reshape(
+            q.shape[0], ct, K6_TILE_COLS).amin(-1)
+        hi = torch.nn.functional.pad(i1, (0, pad), value=-1).reshape(
+            q.shape[0], ct, K6_TILE_COLS).amax(-1)
+        stride = (hi - lo + 7) // 4 * 4  # (win + 6) & ~3
+        rows = torch.tensor([min(K6_TILE_ROWS, ny - y0)
+                             for y0 in range(0, ny, K6_TILE_ROWS)],
+                            device=q.device)
+        count += int((n_comp * rows[None, None, :] * stride[..., None]
+                      > K6_STAGE_FLOATS).sum())
+    return count

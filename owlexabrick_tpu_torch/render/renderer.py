@@ -13,7 +13,9 @@ its shaded hits are the background and its hit depth stops the volume
 (K1's surface stop).
 
 Not ported yet (each raises NotImplementedError): meshes and
-streamlines, contour planes, AO, and the exact wavefront path.
+streamlines, contour planes, AO on gradient-shaded iso hits (the one AO
+setting that changes the JAX Renderer's fast-path image), and the exact
+wavefront path.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from . import prng
 from .camera import Camera
 from .dvr import accumulate, composite_background, pack_rgba8, ray_box
 from .frame import FrameState, make_frame_state, with_camera
@@ -63,13 +66,12 @@ JITTER_SEED = 0x51AB
 
 
 def default_jitter(frame_id: int) -> Tuple[float, float]:
-    """Per-frame sub-pixel jitter in [-0.5, 0.5)^2 from a
-    ``torch.Generator`` seeded by the frame id (deterministic per frame,
-    independent of call order)."""
-    g = torch.Generator()
-    g.manual_seed(JITTER_SEED * 65537 + int(frame_id))
-    u = torch.rand(2, generator=g)
-    return float(u[0]) - 0.5, float(u[1]) - 0.5
+    """Per-frame sub-pixel jitter in [-0.5, 0.5)^2, the JAX Renderer's
+    bit for bit (renderer.py:453-458): two ``uniform`` draws from
+    ``fold_in(fold_in(PRNGKey(0x51AB), frame_id), 0 | 1)``."""
+    key = prng.fold_in(prng.prng_key(JITTER_SEED), frame_id)
+    return (float(prng.uniform_f32(prng.fold_in(key, 0))) - 0.5,
+            float(prng.uniform_f32(prng.fold_in(key, 1))) - 0.5)
 
 
 def _f32s(a, dev) -> torch.Tensor:
@@ -208,6 +210,10 @@ class Renderer:
             xf_opacity_scale=np.float32(opacity_scale))
         self.reset_accumulation()
 
+    def update_dt(self, dt: float):
+        self.fs = dataclasses.replace(self.fs, dt=np.float32(dt))
+        self.reset_accumulation()
+
     def update_iso_values(self, values, channels, enabled):
         self.fs = dataclasses.replace(
             self.fs, iso_value=np.asarray(values, np.float32),
@@ -226,6 +232,16 @@ class Renderer:
                      else self.fs.clip_hi))
         self.reset_accumulation()
 
+    def resize(self, width: int, height: int):
+        """A new image size; the camera products cached for the old size
+        go with it."""
+        self.width = width
+        self.height = height
+        self._cam_cache = None
+        self._last_pose = None
+        self._last_pose_grids = None
+        self.reset_accumulation()
+
     # -- fast (slab-sweep) path ------------------------------------------
     def _camera_from_fs(self) -> Camera:
         return Camera(pos=np.asarray(self.fs.cam_pos),
@@ -242,8 +258,14 @@ class Renderer:
         return self._grids_cache[axis]
 
     def _check_supported(self):
+        """Raise on what the fast path would draw with an unported
+        feature.  AO shades only the iso hits of a gradient-shaded iso
+        sweep (the JAX Renderer's ``ao_fast``, renderer.py:552-554, with
+        ``fs.ao_enabled`` gating the shadow, :691-693); in every other AO
+        setting the JAX Renderer draws the image without AO, as here."""
         cfg, fs = self.cfg, self.fs
-        if cfg.ao_samples > 0 or bool(fs.ao_enabled):
+        if (cfg.ao_samples > 0 and cfg.iso_surfaces
+                and cfg.gradient_shading_iso and bool(fs.ao_enabled)):
             raise NotImplementedError("ambient occlusion is not ported yet")
         if bool(np.any(fs.contour_enabled)):
             raise NotImplementedError("contour planes are not ported yet")

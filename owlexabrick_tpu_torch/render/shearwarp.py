@@ -337,14 +337,23 @@ def warp_image(rgba_i, sw: ShearWarp, width: int, height: int,
 
 
 def render_slabs_shearwarp(grids, fs, cfg, camera, width: int, height: int,
-                           sw: ShearWarp | None = None, jx=0.5, jy=0.5,
-                           oversample: float = 1.5, camera_cache=None):
+                           sw: ShearWarp | None = None, t_stop=None,
+                           jx=0.5, jy=0.5, oversample: float = 1.5,
+                           filter: str = "auto", camera_cache=None):
     """Render an arbitrarily oriented camera exactly through the sweep.
 
     ``camera`` is in voxel space; ``grids.axis`` selects the sweep axis.
-    Returns (width*height, 4) rgba.  Raises ValueError when the frustum
-    is too oblique for this axis.  ``cfg.plain_sweep`` runs the plain
-    versions of both the sweep and the warp."""
+    ``t_stop`` is per *intermediate* pixel (a surface pass runs on the
+    lattice rays).  ``filter`` picks the warp: "auto" (``warp_image``),
+    "bicubic" or "bilinear".  Returns (width*height, 4) rgba.  Raises
+    ValueError when the frustum is too oblique for this axis.
+    ``cfg.plain_sweep`` runs the plain versions of both the sweep and the
+    warp."""
+    warps = {"auto": warp_image, "bicubic": warp_bicubic,
+             "bilinear": warp_bilinear}
+    if filter not in warps:
+        raise ValueError(f"filter must be one of {sorted(warps)}, got "
+                         f"{filter!r}")
     if sw is None:
         iw, ih = inter_dims(width, height, oversample)
         sw = setup_shearwarp(camera, grids.axis, width, height, iw, ih)
@@ -353,8 +362,10 @@ def render_slabs_shearwarp(grids, fs, cfg, camera, width: int, height: int,
                 "camera too oblique for shear-warp along this axis"
             )
     rgba_i = render_slabs_camera(
-        grids, fs, cfg, sw.camera, sw.width, sw.height,
+        grids, fs, cfg, sw.camera, sw.width, sw.height, t_stop=t_stop,
         lattice=sw.lattice(), camera_cache=camera_cache,
     )
-    return warp_image(rgba_i, sw, width, height, jx=jx, jy=jy,
-                      plain=cfg.plain_sweep)
+    if filter == "auto":
+        return warp_image(rgba_i, sw, width, height, jx=jx, jy=jy,
+                          plain=cfg.plain_sweep)
+    return warps[filter](rgba_i, sw, width, height, jx=jx, jy=jy)

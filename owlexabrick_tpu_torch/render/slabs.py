@@ -51,7 +51,7 @@ from .classify import (
     texel_coord,
     xf_classify,
 )
-from .mids import tent_taps, xresample_mids
+from .mids import tent_taps, xresample_mids_levels
 from .sweep import (
     combine_activity,
     pack_luts,
@@ -1096,7 +1096,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         scale_d = scale.to(dev)
         z_d = z_s.to(dev)
         x_pos = ox.to(dev) + scale_d[:, None] * rx[None, :]  # (S, W)
-        mids = []
+        zvs_l, qx_l = [], []
         for li, L in enumerate(grids.levels):
             cw = float(1 << L)
             m = grids.masks[li]
@@ -1120,11 +1120,11 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                 return (wz0[:, None, None] * vol.index_select(0, i0z)
                         + wz1[:, None, None] * vol.index_select(0, i1z))
 
-            # the x stage (K6), one launch for every component: the tent
-            # entries the JAX package's dense tent matrix holds
-            zvs = torch.stack([zres(v) for v in comps + [m]])
-            mids.append(xresample_mids(zvs, qx.contiguous(),
-                                       plain=cfg.plain_sweep))
+            zvs_l.append(torch.stack([zres(v) for v in comps + [m]]))
+            qx_l.append(qx.contiguous())
+        # the x stage (K6), one launch for every level and component: the
+        # tent entries the JAX package's dense tent matrix holds
+        mids = xresample_mids_levels(zvs_l, qx_l, plain=cfg.plain_sweep)
 
         # per-slab (C, S, nyb, 2) value ranges over the z-lerp support
         # rows, for the TF-aware lateral cull

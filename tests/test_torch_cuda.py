@@ -18,7 +18,8 @@ import torch
 
 from owlexabrick_tpu_torch.render import sweep as PS
 
-from torch_sweep_inputs import CWS, H, ORG_Y, TILES, W, seeded_inputs
+from torch_sweep_inputs import (
+    CWS, H, ORG_Y, TILES, W, k6_level_cases, seeded_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -126,10 +127,11 @@ def test_main_path_on_card_matches_cpu(cuda):
                          30.0, 24, 24)
     fs = make_frame_state(cam, 1, [[0.0, 1.0]], dt=1.0, opacity_scale=0.8)
     cfg = SlabConfig(nslabs=20, chunk=4, adaptive_stride=True)
-    n0 = PS.sweep_chunk_cuda.launches, PM.xresample_mids_cuda.launches
+    n0 = (PS.sweep_chunk_cuda.launches,
+          PM.xresample_mids_levels_cuda.launches)
     got = render_slabs_camera(g_gpu, fs, cfg, cam, 24, 24).cpu()
     assert PS.sweep_chunk_cuda.launches > n0[0]
-    assert PM.xresample_mids_cuda.launches > n0[1]
+    assert PM.xresample_mids_levels_cuda.launches > n0[1]
     want = render_slabs_camera(g_cpu, fs, cfg, cam, 24, 24)
     assert float((got - want).abs().max()) < 1e-5
     plain = render_slabs_camera(
@@ -292,13 +294,43 @@ def test_k6_matches_plain_version(cuda):
     qx = np.sort(rng.uniform(-2.5, nx + 1.5, (s_, w)), 1).astype(np.float32)
     qx[:, 10:20] = np.arange(10, dtype=np.float32)
     qx = torch.from_numpy(qx).to(cuda)
-    n0 = PM.xresample_mids_cuda.launches
+    n0 = PM.xresample_mids_levels_cuda.launches
     got = PM.xresample_mids(zvs, qx)
-    assert PM.xresample_mids_cuda.launches == n0 + 1
+    assert PM.xresample_mids_levels_cuda.launches == n0 + 1
     want = PM.xresample_mids(zvs, qx, plain=True)
     torch.cuda.synchronize()
     assert got.shape == (c, s_, ny, w) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["levels4", "levels9", "ragged_w",
+                                  "wide_window"])
+def test_k6_levels_bit_equal_plain(cuda, case):
+    """The level-batched K6 (its kept body, the per-thread body and the
+    staged body) and the per-level kernel against the plain version on
+    the card, bit for bit: one launch per 8 levels; the staged body
+    counts the tiles whose window outgrows its shared memory as the host
+    does (some only on the wide window)."""
+    from owlexabrick_tpu_torch.render import mids as PM
+
+    zvs_l, qx_l = k6_level_cases()[case]
+    zt = [torch.from_numpy(z).to(cuda) for z in zvs_l]
+    qt = [torch.from_numpy(q).to(cuda) for q in qx_l]
+    want = PM.xresample_mids_levels(zt, qt, plain=True)
+    n0 = PM.xresample_mids_levels_cuda.launches
+    got = PM.xresample_mids_levels(zt, qt)
+    assert (PM.xresample_mids_levels_cuda.launches - n0
+            == -(-len(zt) // PM.K6_MAX_LEVELS))
+    l1 = torch.zeros(1, dtype=torch.int32, device=cuda)
+    staged = PM.xresample_mids_levels_cuda(zt, qt, PM.K6_STAGED, l1)
+    thread = PM.xresample_mids_levels_cuda(zt, qt, PM.K6_THREAD)
+    per_level = [PM.xresample_mids_per_level_cuda(z, q)
+                 for z, q in zip(zt, qt)]
+    torch.cuda.synchronize()
+    for outs in (got, staged, thread, per_level):
+        assert all(torch.equal(g, p) for g, p in zip(outs, want))
+    assert int(l1.item()) == PM.k6_l1_tiles(zt, qt)
+    assert (int(l1.item()) > 0) == (case == "wide_window")
 
 
 def test_iso_on_card_matches_cpu(cuda):
@@ -328,7 +360,7 @@ def test_iso_on_card_matches_cpu(cuda):
                              iso_value=np.asarray([0.55, 0.0], np.float32))
     cfg = SlabConfig(num_channels=2, nslabs=20, chunk=4, colormap_channel=1)
     counts = (PS.sweep_chunk_cuda, PC.xf_classify_cuda,
-              PM.xresample_mids_cuda)
+              PM.xresample_mids_levels_cuda)
     frames = []
     for g in (g_gpu, g_cpu):
         n0 = [k.launches for k in counts]

@@ -132,7 +132,7 @@ def _grids(text, channels):
     scene, bricks, *_ = scene_from_cells(lower, level, fields)
     g = R.build_level_grids(bricks, scene.scalars, axis=2, device=False)
     return (jax.tree.map(jnp.asarray, g),
-            interop.level_grids_from_reference(g))
+            interop.level_grids_from_reference(g, device="cpu"))
 
 
 @pytest.fixture(scope="module")

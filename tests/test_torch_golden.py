@@ -1,8 +1,8 @@
 """PyTorch port, Renderer: the fast_aligned, fast_stride and
 fast_shearwarp goldens of the JAX package (32^3 bench scene, 96x64, 2
 frames) rendered through the port's Renderer and held to the reference's golden gate
-(tests/test_golden_images.py::_check).  The per-frame jitter is the JAX
-Renderer's (jax.random), fed in as constants."""
+(tests/test_golden_images.py::_check).  The per-frame jitter is the
+Renderer's default, the JAX Renderer's jax.random draws in numpy."""
 
 import numpy as np
 import pytest
@@ -14,8 +14,6 @@ from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
 from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
 
 from test_golden_images import H, N, W, _check
-
-import chip_smoke
 
 
 @pytest.fixture(scope="module")
@@ -31,8 +29,7 @@ def _renderer(cells, stride, device="cpu", tilted=False):
     fs = make_frame_state(cam, 1, [[0.0, 1.05]], dt=1.0, opacity_scale=0.7)
     r = Renderer(cells, W, H,
                  cfg=RenderConfig(num_channels=1, adaptive_stride=stride),
-                 frame_state=fs, device=device,
-                 jitter=chip_smoke.GOLDEN_JITTER.__getitem__)
+                 frame_state=fs, device=device)
     assert r.enable_fast_path()
     return r
 
@@ -64,17 +61,28 @@ def test_renderer_static_pose_uses_camera_cache(cells, tilted):
 
 
 def test_renderer_unported_features_raise(cells):
-    """AO and contour planes still raise; the clip box and DVR gradient
-    shading render (the einsum lane), and so do iso surfaces (the iso
-    sweep, then K1 with its surface stop)."""
+    """AO on gradient-shaded iso hits and contour planes still raise; AO
+    where the JAX fast path draws no AO term, the clip box and DVR
+    gradient shading render (the einsum lane), and so do iso surfaces
+    (the iso sweep, then K1 with its surface stop)."""
     import dataclasses
 
-    for patch in (dict(ao_enabled=np.bool_(True)),
-                  dict(contour_enabled=np.asarray([True, False, False]))):
-        r = _renderer(cells, False)
-        r.fs = dataclasses.replace(r.fs, **patch)
-        with pytest.raises(NotImplementedError):
-            r.render()
+    r = _renderer(cells, False)
+    r.fs = dataclasses.replace(r.fs, contour_enabled=np.asarray(
+        [True, False, False]))
+    with pytest.raises(NotImplementedError):
+        r.render()
+    r = Renderer(cells, W, H, cfg=RenderConfig(iso_surfaces=True,
+                                               ao_samples=4),
+                 frame_state=dataclasses.replace(
+                     _renderer(cells, False).fs, ao_enabled=np.bool_(True)),
+                 device="cpu")
+    r.update_iso_values([0.55, 0.0], [0, 0], [True, False])
+    with pytest.raises(NotImplementedError):
+        r.enable_fast_path()
+    r = _renderer(cells, False)
+    r.fs = dataclasses.replace(r.fs, ao_enabled=np.bool_(True))
+    assert (r.image_uint8(r.render())[..., :3] > 16).any()
     r = Renderer(cells, W, H, cfg=RenderConfig(iso_surfaces=True),
                  frame_state=_renderer(cells, False).fs, device="cpu")
     r.update_iso_values([0.55, 0.0], [0, 0], [True, False])

@@ -113,7 +113,8 @@ def test_level_grids_bit_equal(text, axis):
         lower, level, scal[None], axis=axis, device="cpu"))
     _assert_grids_equal(ref, P.build_level_grids(
         bricks, scene.scalars, axis=axis, device="cpu"))
-    _assert_grids_equal(ref, interop.level_grids_from_reference(ref))
+    _assert_grids_equal(ref, interop.level_grids_from_reference(
+        ref, device="cpu"))
 
 
 @pytest.mark.parametrize("kind", ["blobs", "exajet"])
@@ -181,7 +182,7 @@ def _golden_scene_grids():
                                          0.004, 3)
     scene, bricks, *_ = scene_from_cells(lower, level, [scal])
     ref = R.build_level_grids(bricks, scene.scalars, axis=2, device=False)
-    return ref, interop.level_grids_from_reference(ref)
+    return ref, interop.level_grids_from_reference(ref, device="cpu")
 
 
 @pytest.mark.parametrize("eye,fov,hw", [
@@ -229,6 +230,19 @@ def test_jitter_constants_match_jax_random():
                                               ())) - 0.5
         assert jy == float(jax.random.uniform(jax.random.fold_in(key, 1),
                                               ())) - 0.5
+
+
+def test_default_jitter_matches_jax_random():
+    """The Renderer's default jitter (numpy Threefry-2x32) equals the JAX
+    Renderer's jax.random jitter bit for bit on frames 0-63."""
+    from owlexabrick_tpu_torch.render.renderer import default_jitter
+
+    base = jax.random.PRNGKey(0x51AB)
+    for f in range(64):
+        key = jax.random.fold_in(base, f)
+        want = tuple(float(jax.random.uniform(jax.random.fold_in(key, d),
+                                              ())) - 0.5 for d in (0, 1))
+        assert default_jitter(f) == want, f
 
 
 def test_cuda_device_without_card_raises():

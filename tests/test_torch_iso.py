@@ -132,7 +132,8 @@ def _scene(text, channels=1):
     fields = [scal, 7.0 - scal][:channels]
     scene, bricks, *_ = scene_from_cells(lower, level, fields)
     g = R.build_level_grids(bricks, scene.scalars, axis=2, device=False)
-    return jax.tree.map(jnp.asarray, g), interop.level_grids_from_reference(g)
+    return jax.tree.map(jnp.asarray, g), interop.level_grids_from_reference(
+        g, device="cpu")
 
 
 @pytest.fixture(scope="module")

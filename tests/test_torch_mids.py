@@ -23,6 +23,7 @@ from owlexabrick_tpu_torch.render import slabs as P
 from owlexabrick_tpu_torch.render.camera import Camera
 
 from test_torch_iso import _lattice, _ref_cam
+from torch_sweep_inputs import k6_level_cases
 
 # tests/test_slabs.py::test_kernel_mids_agrees's scene: a 16^3 level-0
 # block and an 8^3 level-1 block above it
@@ -52,9 +53,47 @@ def test_k6_plain_matches_pallas():
     assert float(got.abs().max()) > 0.5
 
 
+@pytest.mark.parametrize("case", ["levels4", "levels9", "ragged_w",
+                                  "wide_window"])
+def test_k6_levels_plain_matches_pallas(case):
+    """The level-batched plain version against the per-level plain
+    version (equal) and against pallas_mids.xresample_mids per level
+    (HIGHEST, interpret mode; qx padded at -2 to the tile multiple, the
+    output cropped), every value within 1e-6; the wide window is the one
+    case whose staged tiles outgrow the kernel's shared memory."""
+    zvs_l, qx_l = k6_level_cases()[case]
+    zt = [torch.from_numpy(z) for z in zvs_l]
+    qt = [torch.from_numpy(q) for q in qx_l]
+    got = PM.xresample_mids_levels(zt, qt)
+    assert len(got) == len(zvs_l)
+    assert (PM.k6_l1_tiles(zt, qt) > 0) == (case == "wide_window")
+    tc = 128
+    for z, q, g in zip(zvs_l, qx_l, got):
+        c1, s_, ny, _ = z.shape
+        w = q.shape[1]
+        assert torch.equal(g, PM.xresample_mids_reference(
+            torch.from_numpy(z), torch.from_numpy(q)))
+        qp = np.pad(q, ((0, 0), (0, -(-w // tc) * tc - w)),
+                    constant_values=-2.0)
+        ref = RM.xresample_mids([jnp.asarray(v) for v in z],
+                                jnp.asarray(qp), tc, interpret=True)
+        assert g.shape == (c1, s_, ny, w)
+        for c in range(c1):
+            want = np.asarray(ref[c])[:, :ny, :w]
+            assert float(np.abs(g[c].numpy() - want).max()) <= 1e-6
+
+
 def test_k6_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError):
-        PM.xresample_mids_cuda(torch.zeros(2, 1, 3, 4), torch.zeros(1, 5))
+        PM.xresample_mids_levels_cuda([torch.zeros(2, 1, 3, 4)],
+                                      [torch.zeros(1, 5)])
+    with pytest.raises(ValueError):
+        PM.xresample_mids_per_level_cuda(torch.zeros(2, 1, 3, 4),
+                                         torch.zeros(1, 5))
+    with pytest.raises(ValueError):  # levels that differ in S
+        PM.xresample_mids_levels([torch.zeros(2, 1, 3, 4),
+                                  torch.zeros(2, 2, 3, 4)],
+                                 [torch.zeros(1, 5), torch.zeros(2, 5)])
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +106,7 @@ def scene():
     fs = make_frame_state(_ref_cam(cam), 1, [[0.0, 7.0]], dt=0.7,
                           opacity_scale=0.8)
     return (jax.tree.map(jnp.asarray, g),
-            interop.level_grids_from_reference(g), cam, fs)
+            interop.level_grids_from_reference(g, device="cpu"), cam, fs)
 
 
 @pytest.mark.parametrize("stride", [True, False])

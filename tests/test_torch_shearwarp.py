@@ -234,7 +234,8 @@ def scenes():
         for axis in range(3):
             g = R.build_level_grids(bricks, scene.scalars, axis=axis,
                                     device=False)
-            out[name, axis] = (g, interop.level_grids_from_reference(g))
+            out[name, axis] = (g, interop.level_grids_from_reference(
+                g, device="cpu"))
     return out
 
 

@@ -42,7 +42,7 @@ def scenes():
         scene, bricks, *_ = scene_from_cells(lower, level, [scal])
         g = R.build_level_grids(bricks, scene.scalars, axis=2, device=False)
         out[name] = (jax.tree.map(jnp.asarray, g),
-                     interop.level_grids_from_reference(g))
+                     interop.level_grids_from_reference(g, device="cpu"))
     return out
 
 

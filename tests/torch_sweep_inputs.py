@@ -78,3 +78,34 @@ def _add_channels(d, rng, channels):
         d["luts"].append(lut)
         doms.append(np.asarray([0.1 * c, 1.2 + 0.05 * c], np.float32))
     d["dom"] = np.stack(doms)
+
+
+def k6_level_cases():
+    """Seeded level-batched K6 inputs by case name: per level zvs (C+1, S,
+    ny, nx) and qx (S, W) float32, qx running past both lattice ends and
+    sitting on lattice points.  "levels4": a chunk's 4 levels; "levels9":
+    9 levels, two launches' worth; "ragged_w": W no multiple of 4 or of
+    the column tile; "wide_window": a lattice ~2.7x denser than the
+    screen, so the staged kernel's window outgrows its shared memory on
+    one level (and fits on the other)."""
+    rng = np.random.default_rng(66)
+
+    def level(c1, s_, ny, nx, w):
+        zvs = rng.uniform(-1.0, 2.0, (c1, s_, ny, nx)).astype(np.float32)
+        qx = np.sort(rng.uniform(-2.5, nx + 1.5, (s_, w)), 1).astype(
+            np.float32)
+        k = min(10, w // 4, nx)
+        qx[:, w // 2:w // 2 + k] = np.arange(k, dtype=np.float32)
+        return zvs, qx
+
+    def case(c1, s_, w, shapes):
+        lv = [level(c1, s_, ny, nx, w) for ny, nx in shapes]
+        return [z for z, _ in lv], [q for _, q in lv]
+
+    return dict(
+        levels4=case(2, 5, 300, [(37, 29), (19, 15), (10, 8), (5, 4)]),
+        levels9=case(3, 3, 256, [(20 - 2 * i, 23 - 2 * i)
+                                 for i in range(9)]),
+        ragged_w=case(2, 4, 203, [(17, 31), (9, 16)]),
+        wide_window=case(2, 3, 260, [(21, 700), (12, 40)]),
+    )
