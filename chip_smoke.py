@@ -59,13 +59,10 @@ surface stop).  Phases, each of which fails the run:
     K6 (``csrc/mids.cu``, one launch per chunk for every level) bit for
     bit against ``xresample_mids_reference`` on a seeded level block and,
     from a real uncached frame of the headline and of blobs256, on the
-    largest level block, the largest chunk and the whole frame, with
-    three other bodies (the per-level kernel, and the level table's
-    per-thread body without unrolled loads and with staged tiles) timed
-    in turns beside it, ``fill_`` of its outputs and the staged tiles
-    that read through L1 counted; each also against one PyTorch call
-    that computes its function (``grid_sample``), the yardstick
-    ``library_ms``;
+    largest level block, the largest chunk and the whole frame, timed
+    beside ``fill_`` of its outputs (the card's store speed on them) and
+    one PyTorch call that computes its function (``grid_sample``), the
+    yardstick ``library_ms``;
 12. the iso path at 1920x1080, one iso surface at 0.524 of the value
     maximum, gradient shading iso on: ``headline_iso``, ``blobs256_iso``
     (uncached and cached), ``headline_tilted_iso`` (shear-warp) and
@@ -75,14 +72,14 @@ surface stop).  Phases, each of which fails the run:
 
 Launch counts are set to 0 just before each path (aligned, tilted,
 einsum lane, iso) and read just after; a kernel of a path that launched
-no time there fails the run.  Each kernel's bound is the
-larger of its bytes (each input read once, each output written once)
-over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
-SXM's published peaks), counted from this run's inputs.
+no time there fails the run, and so does an uncached megakernel frame
+whose K6 launches are not one per 8 levels of every chunk it swept.
+Each kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s (the H100 SXM's published peaks), counted from this
+run's inputs.
 
-``--k6-only`` builds the kernels, makes the scenes and runs only K6's
-check (its four bodies timed in turns), then stops without the result
-lines.  ``--profile`` adds a torch.profiler trace of one uncached and one
+``--profile`` adds a torch.profiler trace of one uncached and one
 cached frame per row (one frame per einsum-lane and iso row): device
 time by kernel (the top eight, and each of the port's kernels) and the
 device's busy share, and Chrome traces of the aligned and tilted
@@ -137,12 +134,7 @@ PORT_KERNELS = {"sweep_kernel": "K1", "warp_pass1_kernel": "K2a",
                 "warp_pass2_kernel": "K2b",
                 "composite_chunk_kernel": "K3",
                 "classify_field_kernel": "K4", "xf_classify_kernel": "K5",
-                "xresample_levels_": "K6"}
-# K6's bodies, timed in turns (k6_check), and the one the render path
-# launches (mids.xresample_mids_levels_cuda's default)
-K6_VARIANTS = ("a_per_level", "b_table_thread", "c_table_staged",
-               "d_table_unrolled")
-K6_KEPT = "d_table_unrolled"
+                "xresample_levels_kernel": "K6"}
 # the iso rows' iso value as a fraction of the scene's value maximum: the
 # iso golden's 0.55 on its [0, 1.05] TF domain
 ISO_FRAC = 0.524
@@ -672,8 +664,12 @@ def reset_launch_counts():
 
 def phase_rows(rows, width, height, n_timed=3):
     """Phases 5 and 6: each row at full size, uncached and through the
-    camera cache; returns the kernel frames for the plain comparison."""
+    camera cache; returns the kernel frames for the plain comparison.
+    The first uncached frame must launch K6 once per 8 levels of every
+    chunk it sweeps (K1 launches once per chunk)."""
     import torch
+
+    from owlexabrick_tpu_torch.render.mids import K6_MAX_LEVELS
 
     frames = {}
     for name, row in rows.items():
@@ -688,9 +684,11 @@ def phase_rows(rows, width, height, n_timed=3):
             torch.cuda.synchronize()
             return out, (time.perf_counter() - t0) * 1e3
 
-        k6_0 = launch_counts()["K6"]
+        f0 = launch_counts()
         first, first_ms = frame()
-        k6_first = launch_counts()["K6"] - k6_0
+        f1 = launch_counts()
+        k6_first, chunks = (f1[k] - f0[k] for k in ("K6", "K1"))
+        k6_want = chunks * -(-len(row[0].levels) // K6_MAX_LEVELS)
         unc = [frame()[1] for _ in range(n_timed)]
         cache = {}
         cached0, prep_ms = frame(cache)
@@ -712,6 +710,7 @@ def phase_rows(rows, width, height, n_timed=3):
         rec.update({f"{k}_launches": v - n0[k]
                     for k, v in launch_counts().items()})
         rec["k6_launches_uncached_frame"] = k6_first
+        rec["chunks_swept_uncached_frame"] = chunks
         rec["prepare_ms_est"] = round(
             prep_ms - float(np.median([t for _, t in cached])), 3)
         bit_same = bool(torch.equal(first, cached0))
@@ -725,6 +724,10 @@ def phase_rows(rows, width, height, n_timed=3):
             raise SystemExit(f"{name}: frame not finite or blank")
         if mx_c > 1e-6:
             raise SystemExit(f"{name}: cached frame differs by {mx_c}")
+        if chunks <= 0 or k6_first != k6_want:
+            raise SystemExit(f"{name}: an uncached frame swept {chunks} "
+                             f"chunks in {k6_first} K6 launches, not "
+                             f"{k6_want}")
         frames[name] = first
     return frames
 
@@ -1290,35 +1293,15 @@ def k5_check(name, u, lut):
     return res
 
 
-def k6_runner(variant, calls):
-    """One pass of K6 ``variant`` over ``calls``, a list of (zvs_list,
-    qx_list) (one chunk's levels each): "a_per_level", the per-level
-    kernel once per level; "b_table_thread", the level table with one
-    thread per column; "c_table_staged", the level table with staged
-    tiles and float4 stores; "d_table_unrolled", the kept body (the level
-    table, one thread per column, rows' loads started 8 at a time), each
-    once per call."""
-    from owlexabrick_tpu_torch.render import mids as PM
-
-    if variant == "a_per_level":
-        return lambda: [PM.xresample_mids_per_level_cuda(z, q)
-                        for zl, ql in calls for z, q in zip(zl, ql)]
-    body = {"b_table_thread": PM.K6_THREAD, "c_table_staged": PM.K6_STAGED,
-            "d_table_unrolled": PM.K6_UNROLLED}[variant]
-    return lambda: [o for zl, ql in calls
-                    for o in PM.xresample_mids_levels_cuda(zl, ql, body)]
-
-
 def k6_check(name, calls, iters):
-    """K6's four bodies (``K6_VARIANTS``) against the plain version on
-    ``calls`` (see ``k6_runner``), each bit for bit, and against the
-    library's yardstick (``grid_sample`` of (S, C+1, ny, nx) per level,
-    bilinear, zero padding, align_corners, grid rows exactly at lattice
-    rows: the same x tent); device times from CUDA graph replays of
-    ``iters`` passes, the variants timed in turns (a, b, c, d, d, c, b,
-    a); ``fill_ms``, ``fill_`` of the same outputs, the card's store
-    speed on them; the staged body's tiles and those of them that read
-    through L1; the bytes bound summed over the levels."""
+    """K6 against the plain version on ``calls``, a list of (zvs_list,
+    qx_list) (one chunk's levels each, one launch per call), bit for bit,
+    and against the library's yardstick (``grid_sample`` of (S, C+1, ny,
+    nx) per level, bilinear, zero padding, align_corners, grid rows
+    exactly at lattice rows: the same x tent); device times from CUDA
+    graph replays of ``iters`` passes; ``fill_ms``, ``fill_`` of the same
+    outputs, the card's store speed on them; the bytes bound summed over
+    the levels."""
     import torch
     import torch.nn.functional as F
 
@@ -1327,12 +1310,14 @@ def k6_check(name, calls, iters):
     levels = [(z, q) for zl, ql in calls for z, q in zip(zl, ql)]
     plain = [o for zl, ql in calls
              for o in PM.xresample_mids_levels_reference(zl, ql)]
-    errs, finite = {}, True
-    for v in K6_VARIANTS:
-        out = k6_runner(v, calls)()
-        errs[v] = max(float((a - b).abs().max()) for a, b in zip(out, plain))
-        finite = finite and all(bool(torch.isfinite(o).all()) for o in out)
-        del out
+
+    def run():
+        return [o for zl, ql in calls
+                for o in PM.xresample_mids_levels_cuda(zl, ql)]
+
+    outs = run()
+    err = max(float((a - b).abs().max()) for a, b in zip(outs, plain))
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
     lib_in = []
     for z, q in levels:
         _, s_, ny, nx = z.shape
@@ -1351,47 +1336,25 @@ def k6_check(name, calls, iters):
 
     lib_err = max(float((a.transpose(0, 1) - b).abs().max())
                   for a, b in zip(library(), plain))
-    l1 = torch.zeros(1, dtype=torch.int32, device=levels[0][0].device)
-    for zl, ql in calls:
-        PM.xresample_mids_levels_cuda(zl, ql, PM.K6_STAGED, l1)
-    torch.cuda.synchronize()
-    w = levels[0][1].shape[1]
-    times = {v: [] for v in K6_VARIANTS}
-    for v in K6_VARIANTS + K6_VARIANTS[::-1]:
-        times[v].append(graph_ms(k6_runner(v, calls), iters))
-    outs = k6_runner(K6_KEPT, calls)()
-    fill_ms = graph_ms(lambda: [o.fill_(0.5) for o in outs], iters)
     res = dict(
-        name=name, calls=len(calls), levels=len(levels), W=w,
-        fill_ms=fill_ms,
+        name=name, calls=len(calls), levels=len(levels),
+        W=levels[0][1].shape[1],
         largest_zvs=list(max((z for z, _ in levels),
                              key=lambda z: z.numel()).shape),
         ny=[int(z.shape[2]) for z, _ in levels[:8]],
-        variant_max_abs_err=errs, library_max_abs_err=lib_err,
-        staged_tiles=sum(-(-w // PM.K6_TILE_COLS) * z.shape[1]
-                         * -(-z.shape[2] // PM.K6_TILE_ROWS)
-                         for z, _ in levels),
-        l1_tiles=int(l1.item()), l1_tiles_host=PM.k6_l1_tiles(
-            [z for z, _ in levels], [q for _, q in levels]),
-        variant_ms={v: [round(t, 5) for t in ts] for v, ts in times.items()},
-        kept=K6_KEPT, max_abs_err=errs[K6_KEPT],
-        ms=float(np.mean(times[K6_KEPT])),
+        max_abs_err=err, library_max_abs_err=lib_err,
+        ms=graph_ms(run, iters),
+        fill_ms=graph_ms(lambda: [o.fill_(0.5) for o in outs], iters),
         plain_ms=time_ms(lambda: [PM.xresample_mids_levels_reference(zl, ql)
                                   for zl, ql in calls], 3, warmup=1),
         library_ms=graph_ms(library, iters))
-    res["variant_mean_ms"] = {v: float(np.mean(ts))
-                              for v, ts in times.items()}
     res["bound_ms"], res["bound_by"] = bound(
         sum(nbytes(z, q, o) for (z, q), o in zip(levels, plain)),
         OPS_K6 * sum(o.numel() for o in plain))
     log("k6 check:", json.dumps(res))
-    if not finite or any(e != 0.0 for e in errs.values()):
+    if not finite or err != 0.0:
         raise SystemExit(f"K6 differs from its plain version on {name}: "
-                         f"{errs} (finite={finite})")
-    if res["l1_tiles"] != res["l1_tiles_host"]:
-        raise SystemExit(f"K6 on {name}: {res['l1_tiles']} tiles read "
-                         f"through L1, the host counts "
-                         f"{res['l1_tiles_host']}")
+                         f"{err} (finite={finite})")
     return res
 
 
@@ -1445,8 +1408,8 @@ def phase_k5(iso_rows, width, height, device):
 
 
 def phase_k6(setups, width, height, device):
-    """K6's bodies against the plain version and the library yardstick,
-    timed in turns: a seeded level block; then, from one real uncached
+    """K6 against the plain version and the library yardstick: a seeded
+    level block; then, from one real uncached
     frame each of the headline and blobs256, the largest level block,
     the whole chunk with the most level elements, and every chunk of the
     frame."""
@@ -1579,11 +1542,6 @@ def main() -> int:
             f"{tilted[f'{name}_tilted'][4]['lattice']}, warp windows "
             f"{tilted[f'{name}_tilted'][4]['windows']}")
 
-    if "--k6-only" in sys.argv[1:]:
-        # K6's bodies timed in turns, alone: no paths, no result line
-        phase_k6(setups, width, height, dev)
-        log(card)
-        return 0
     k1 = phase_k1(setups, tilted, width, height, dev)
     k2 = phase_k2(tilted, width, height, dev)
     phase_goldens(dev)

@@ -24,8 +24,7 @@
 // What bounds it on this card: bytes.  Per level it writes 4 (C+1) S ny W
 // bytes and reads the (C+1) S ny nx blocks, with nx several times below
 // W, against 3 flops per output value; the writes are nearly all of it.
-// The design (xresample_levels_kernel, variant 2, the one the render path
-// launches):
+// The design (xresample_levels_kernel):
 //
 // * One launch per chunk for every level.  The levels' pointers and
 //   sizes travel by value (__grid_constant__) in a table of up to
@@ -49,40 +48,24 @@
 //   256^3 blobs scene (S = 24; ny 240, 128, 64, 32): 8 x 24 x 29 = 5,568
 //   blocks, 10.5 waves.
 //
-// On the H100 (chip_smoke.py --k6-only, PERF.md section 6) torch's fill_
-// of the same outputs runs at about the bytes bound; what separates this
-// kernel from it is the rows' loads, and starting them kUnroll rows at a
-// time is what moved it.  Three more bodies stay so that chip_smoke.py
-// can time the design against them on the same inputs:
-// the earlier one-launch-per-level kernel (owx_xresample_mids); the level
-// table with the same per-thread body without the unrolled loads
-// (variant 0); and the level table with tiles staged in shared memory
-// (variant 1: per (level, slab, kTileRows x kTileCols) tile, the lattice
-// window its columns reach copied with cp.async, 16 bytes where the
-// source's 16-byte grouping allows, else 4, one wait, 4 columns per
-// thread from shared memory and one float4 store per (component, row); a
-// tile whose window outgrows kStageFloats reads through L1, counted in
-// l1_tiles when given).  The staged body was slower on every shape
-// timed: its 78 registers leave 3 blocks per SM to hide each block's qx
-// load, window copy and wait, which come one after another.  Every body
-// computes w0 * a + w1 * b in that order, built with -fmad=false, so all
-// four give the same bits as the plain twin.  Nothing is allocated here;
-// every launch is on the caller's stream.
+// On the H100 (PERF.md section 6) torch's fill_ of the same outputs runs
+// at about the bytes bound; what separates this kernel from it is the
+// rows' loads, and starting them kUnroll rows at a time is what moved
+// it; tiles staged in shared memory with cp.async and float4 stores ran
+// slower on every shape timed there.  The kernel computes w0 * a +
+// w1 * b in that order, built with -fmad=false, so it gives the same
+// bits as the plain twin.  Nothing is allocated here; every launch is
+// on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-constexpr int kRows = 16;  // the per-thread bodies: rows per block
+constexpr int kRows = 16;   // rows per block
 constexpr int kUnroll = 8;  // rows whose loads are started together
-constexpr int kTileRows = 16;
-constexpr int kTileCols = 128;   // 32 lanes x 4 columns
-constexpr int kWarps = kThreads / 32;
-constexpr int kStageFloats = 6144;  // 24 KB: 8 blocks of 256 threads per SM
 
 struct Tap {
   int i0, i1;
@@ -104,34 +87,6 @@ __device__ __forceinline__ Tap tent(float q, int n) {
   return t;
 }
 
-struct MidsParams {
-  int n_comp, S, ny, nx, W;
-};
-
-// the per-level kernel: grid (ceil(W / kThreads), S, ceil(ny / kRows));
-// zvs (C+1, S, ny, nx), qx (S, W), out (C+1, S, ny, W)
-__global__ void __launch_bounds__(kThreads)
-xresample_mids_kernel(const float* __restrict__ zvs,
-                      const float* __restrict__ qx,
-                      float* __restrict__ out, MidsParams p) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= p.W) return;
-  const int s = blockIdx.y;
-  const int y0 = blockIdx.z * kRows;
-  const int y1 = min(y0 + kRows, p.ny);
-  const Tap t = tent(qx[(size_t)s * p.W + j], p.nx);
-  for (int c = 0; c < p.n_comp; ++c) {
-    const size_t plane = (size_t)c * p.S + s;
-    const float* src = zvs + plane * p.ny * p.nx;
-    float* dst = out + plane * p.ny * p.W + j;
-    for (int y = y0; y < y1; ++y) {
-      const float* row = src + (size_t)y * p.nx;
-      dst[(size_t)y * p.W] =
-          t.w0 * __ldg(row + t.i0) + t.w1 * __ldg(row + t.i1);
-    }
-  }
-}
-
 struct LevelEntry {
   const float* zvs;  // (C+1, S, ny, nx)
   const float* qx;   // (S, W)
@@ -142,7 +97,6 @@ struct LevelEntry {
 struct LevelTable {
   LevelEntry lv[kMaxLevels];
   int n_levels, n_comp, S, W, col_tiles;
-  int* l1_tiles;  // tiles that read through L1, or null
 };
 
 struct TileId {
@@ -165,35 +119,10 @@ __device__ __forceinline__ TileId tile_of(const LevelTable& t, int b) {
   return id;
 }
 
-// variant 0: the level table with one thread per column (tiles of
-// kThreads columns x kRows rows), both taps read through L1, 4-byte
-// stores
-__global__ void __launch_bounds__(kThreads)
-xresample_levels_thread_kernel(const __grid_constant__ LevelTable t) {
-  const TileId id = tile_of(t, blockIdx.x);
-  const LevelEntry& L = t.lv[id.level];
-  const int j = id.ct * kThreads + threadIdx.x;
-  if (j >= t.W) return;
-  const int y0 = id.rt * kRows;
-  const int y1 = min(y0 + kRows, L.ny);
-  const Tap tp = tent(L.qx[(size_t)id.s * t.W + j], L.nx);
-  for (int c = 0; c < t.n_comp; ++c) {
-    const size_t plane = (size_t)c * t.S + id.s;
-    const float* src = L.zvs + plane * L.ny * L.nx;
-    float* dst = L.out + plane * L.ny * t.W + j;
-    for (int y = y0; y < y1; ++y) {
-      const float* row = src + (size_t)y * L.nx;
-      dst[(size_t)y * t.W] =
-          tp.w0 * __ldg(row + tp.i0) + tp.w1 * __ldg(row + tp.i1);
-    }
-  }
-}
-
-// variant 2, the kept design: the per-thread body with its rows' tap
-// pairs loaded kU rows at a time over restrict pointers.  The minimum
-// of 1 block per SM in the launch bounds matters: without it the same
-// loop built to 40 registers and ran slower than variant 0 on the H100
-template <int kU>
+// one thread per column with its rows' tap pairs loaded kUnroll rows at
+// a time over restrict pointers.  The minimum of 1 block per SM in the
+// launch bounds matters: without it the same loop built to 40 registers
+// and ran slower on the H100 than with its rows' loads one at a time
 __global__ void __launch_bounds__(kThreads, 1)
 xresample_levels_kernel(const __grid_constant__ LevelTable t) {
   const TileId id = tile_of(t, blockIdx.x);
@@ -209,7 +138,7 @@ xresample_levels_kernel(const __grid_constant__ LevelTable t) {
     const float* __restrict__ src = L.zvs + plane * ny * nx + tp.i0;
     float* __restrict__ dst = L.out + plane * ny * W + j;
     const int d = tp.i1 - tp.i0;
-#pragma unroll kU
+#pragma unroll kUnroll
     for (int y = y0; y < y1; ++y) {
       const float* row = src + y * nx;
       dst[(size_t)y * W] = tp.w0 * __ldg(row) + tp.w1 * __ldg(row + d);
@@ -217,166 +146,26 @@ xresample_levels_kernel(const __grid_constant__ LevelTable t) {
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-// variant 1: tiles of kTileRows x kTileCols, the lattice window staged
-// in shared memory, float4 stores
-__global__ void __launch_bounds__(kThreads)
-xresample_levels_staged_kernel(const __grid_constant__ LevelTable t) {
-  __shared__ __align__(16) float stage[kStageFloats];
-  const TileId id = tile_of(t, blockIdx.x);
-  const LevelEntry& L = t.lv[id.level];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int W = t.W, nx = L.nx, ny = L.ny, S = t.S, s = id.s;
-  const int j0 = id.ct * kTileCols + lane * 4;
-  const int nvalid = min(4, W - j0);  // <= 0 past a ragged W
-
-  // this thread's 4 columns' taps, and the window every lane reaches
-  // (all warps hold the same columns, so each finds it alone)
-  Tap tp[4];
-  int k_lo = nx, k_hi = -1;
-  const float* qrow = L.qx + (size_t)s * W;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    if (u < nvalid) {
-      tp[u] = tent(__ldg(qrow + j0 + u), nx);
-      k_lo = min(k_lo, tp[u].i0);
-      k_hi = max(k_hi, tp[u].i1);
-    } else {
-      tp[u] = Tap{0, 0, 0.f, 0.f};
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    k_lo = min(k_lo, __shfl_xor_sync(0xffffffffu, k_lo, o));
-    k_hi = max(k_hi, __shfl_xor_sync(0xffffffffu, k_hi, o));
-  }
-  const int win = k_hi - k_lo + 1;
-  const int y0 = id.rt * kTileRows;
-  const int nrows = min(kTileRows, ny - y0);
-  // a segment is one (component, row) of the window; its first float
-  // sits at its source's phase in a 16-byte group, so that 16-byte
-  // groups of the source land on 16-byte groups of shared memory
-  const int stride = (win + 6) & ~3;  // >= win + 3, a multiple of 4
-  const int segs = t.n_comp * nrows;
-  const bool staged = segs * stride <= kStageFloats;  // uniform
-
-  auto seg_src = [&](int c, int r) {
-    return L.zvs + (((size_t)c * S + s) * ny + y0 + r) * nx + k_lo;
-  };
-  auto phase = [](const float* p) { return (int)(((uintptr_t)p >> 2) & 3); };
-
-  if (staged) {
-    const int groups = stride >> 2;
-    for (int it = threadIdx.x; it < segs * groups; it += kThreads) {
-      const int seg = it / groups;
-      const int g = it - seg * groups;
-      const int c = seg / nrows;
-      const float* src = seg_src(c, seg - c * nrows);
-      const int ph = phase(src);
-      float* dst = stage + seg * stride + ph;
-      const int e0 = 4 * g - ph;  // this group's first element
-      if (e0 >= win) continue;
-      if (e0 >= 0 && e0 + 4 <= win) {
-        cp_async16(dst + e0, src + e0);
-      } else {
-        for (int e = max(e0, 0); e < min(e0 + 4, win); ++e)
-          cp_async4(dst + e, src + e);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-  } else if (threadIdx.x == 0 && t.l1_tiles) {
-    atomicAdd(t.l1_tiles, 1);
-  }
-  if (nvalid <= 0) return;
-
-  const bool vec = nvalid == 4 && (W & 3) == 0 &&
-                   (((uintptr_t)L.out) & 15) == 0;
-  for (int r = warp; r < nrows; r += kWarps) {
-    for (int c = 0; c < t.n_comp; ++c) {
-      float v[4];
-      if (staged) {
-        const int seg = c * nrows + r;
-        const float* row = stage + seg * stride + phase(seg_src(c, r));
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          v[u] = tp[u].w0 * row[tp[u].i0 - k_lo] +
-                 tp[u].w1 * row[tp[u].i1 - k_lo];
-      } else {
-        const float* row = seg_src(c, r) - k_lo;
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          v[u] = tp[u].w0 * __ldg(row + tp[u].i0) +
-                 tp[u].w1 * __ldg(row + tp[u].i1);
-      }
-      float* dst = L.out + (((size_t)c * S + s) * ny + y0 + r) * W + j0;
-      if (vec) {
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (u < nvalid) dst[u] = v[u];
-      }
-    }
-  }
-}
-
 }  // namespace
-
-// The per-level kernel: zvs (n_comp, S, ny, nx), qx (S, W), out (n_comp,
-// S, ny, W), all float32 contiguous.  Returns the launch's cudaError_t
-// (0 = launched).
-extern "C" int owx_xresample_mids(const void* zvs, const void* qx,
-                                  void* out, int n_comp, int S, int ny,
-                                  int nx, int W, void* stream) {
-  if (!zvs || !qx || !out || n_comp < 1 || S < 1 || S > 65535 || ny < 1 ||
-      nx < 1 || W < 1 || (ny + kRows - 1) / kRows > 65535)
-    return (int)cudaErrorInvalidValue;
-  const MidsParams p = {n_comp, S, ny, nx, W};
-  const dim3 grid((W + kThreads - 1) / kThreads, S, (ny + kRows - 1) / kRows);
-  xresample_mids_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)zvs, (const float*)qx, (float*)out, p);
-  return (int)cudaGetLastError();
-}
 
 // K6, one launch for n_levels <= kMaxLevels levels of one chunk: per
 // level l, zvs[l] (n_comp, S, ny[l], nx[l]), qx[l] (S, W) and out[l]
-// (n_comp, S, ny[l], W), all float32 contiguous.  variant 2 is the kept
-// body, 0 the per-thread body without unrolled loads, 1 the staged tiles
-// (l1_tiles, an int on the device or null, counts their tiles that read
-// through L1).  Returns the launch's cudaError_t (0 = launched).
+// (n_comp, S, ny[l], W), all float32 contiguous.  Returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int owx_xresample_levels(const void* const* zvs,
                                     const void* const* qx,
                                     void* const* out, const int* ny,
                                     const int* nx, int n_levels, int n_comp,
-                                    int S, int W, int variant,
-                                    void* l1_tiles, void* stream) {
+                                    int S, int W, void* stream) {
   if (!zvs || !qx || !out || !ny || !nx || n_levels < 1 ||
-      n_levels > kMaxLevels || n_comp < 1 || S < 1 || W < 1 ||
-      variant < 0 || variant > 2)
+      n_levels > kMaxLevels || n_comp < 1 || S < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
-  const int cols = variant == 1 ? kTileCols : kThreads;
-  const int rows = variant == 1 ? kTileRows : kRows;
   LevelTable t = {};
   t.n_levels = n_levels;
   t.n_comp = n_comp;
   t.S = S;
   t.W = W;
-  t.col_tiles = (W + cols - 1) / cols;
-  t.l1_tiles = (int*)l1_tiles;
+  t.col_tiles = (W + kThreads - 1) / kThreads;
   long long blocks = 0;
   for (int l = 0; l < n_levels; ++l) {
     if (!zvs[l] || !qx[l] || !out[l] || ny[l] < 1 || nx[l] < 1)
@@ -387,19 +176,12 @@ extern "C" int owx_xresample_levels(const void* const* zvs,
     e.out = (float*)out[l];
     e.ny = ny[l];
     e.nx = nx[l];
-    e.row_tiles = (ny[l] + rows - 1) / rows;
+    e.row_tiles = (ny[l] + kRows - 1) / kRows;
     e.block0 = (int)blocks;
     blocks += (long long)t.col_tiles * S * e.row_tiles;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   }
-  const unsigned g = (unsigned)blocks;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (variant == 1)
-    xresample_levels_staged_kernel<<<g, kThreads, 0, st>>>(t);
-  else if (variant == 2)
-    xresample_levels_kernel<kUnroll><<<g, kThreads, 0, st>>>(t);
-  else
-    xresample_levels_thread_kernel<<<(unsigned)blocks, kThreads, 0,
-                                     (cudaStream_t)stream>>>(t);
+  xresample_levels_kernel<<<(unsigned)blocks, kThreads, 0,
+                            (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }

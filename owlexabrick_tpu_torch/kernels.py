@@ -140,12 +140,9 @@ def load():
         lib.owx_composite_chunk.restype = ci
         lib.owx_xf_classify.argtypes = [vp, vp, vp, ll, ci, vp]
         lib.owx_xf_classify.restype = ci
-        lib.owx_xresample_mids.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
-                                           vp]
-        lib.owx_xresample_mids.restype = ci
         pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.owx_xresample_levels.argtypes = [pv, pv, pv, pi, pi, ci, ci, ci,
-                                             ci, ci, vp, vp]
+                                             ci, vp]
         lib.owx_xresample_levels.restype = ci
         lib.owx_error_string.argtypes = [ci]
         lib.owx_error_string.restype = ctypes.c_char_p

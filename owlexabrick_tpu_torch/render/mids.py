@@ -60,14 +60,8 @@ def xresample_mids_reference(zvs: torch.Tensor,
     return tap(i0, w0) + tap(i1, w1)
 
 
-# must match csrc/mids.cu: levels per launch, the staged body's tile and
-# its shared-memory budget (floats), and the bodies' ids: the kept one
-# (K6_UNROLLED, rows' loads started 8 at a time), and two that
-# chip_smoke.py times beside it (the per-thread body without that, and
-# the staged tiles)
+# levels per launch (kMaxLevels in csrc/mids.cu)
 K6_MAX_LEVELS = 8
-K6_TILE_ROWS, K6_TILE_COLS, K6_STAGE_FLOATS = 16, 128, 6144
-K6_THREAD, K6_STAGED, K6_UNROLLED = 0, 1, 2
 
 
 def xresample_mids_levels_reference(zvs_list, qx_list):
@@ -94,14 +88,10 @@ def _levels_shape(zvs_list, qx_list):
     return n_comp, s_, w_
 
 
-def xresample_mids_levels_cuda(zvs_list, qx_list,
-                               variant: int = K6_UNROLLED, l1_tiles=None):
+def xresample_mids_levels_cuda(zvs_list, qx_list):
     """Launch K6 (``csrc/mids.cu``) on the current stream, once for every
     ``K6_MAX_LEVELS`` levels.  Same arguments and result as
-    ``xresample_mids_levels_reference``.  ``variant``: the kept body
-    (``K6_UNROLLED``) or, for timing, ``K6_THREAD`` / ``K6_STAGED``;
-    ``l1_tiles``: an int32 (1,) device tensor to which the staged body
-    adds its tiles that read through L1.  Raises on any input the kernel
+    ``xresample_mids_levels_reference``.  Raises on any input the kernel
     does not take; never falls back."""
     from .. import kernels
 
@@ -113,8 +103,6 @@ def xresample_mids_levels_cuda(zvs_list, qx_list,
     for z, q in zip(zvs_list, qx_list):
         kernels.check_tensor("zvs", z, dev, tuple(z.shape))
         kernels.check_tensor("qx", q, dev, (s_, w_))
-    if l1_tiles is not None:
-        kernels.check_tensor("l1_tiles", l1_tiles, dev, (1,), torch.int32)
     outs = [torch.empty((n_comp, s_, z.shape[2], w_), dtype=torch.float32,
                         device=dev) for z in zvs_list]
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -128,9 +116,7 @@ def xresample_mids_levels_cuda(zvs_list, qx_list,
             (vp * n)(*[outs[l].data_ptr() for l in grp]),
             (ci * n)(*[zvs_list[l].shape[2] for l in grp]),
             (ci * n)(*[zvs_list[l].shape[3] for l in grp]),
-            n, n_comp, s_, w_, variant,
-            vp(None if l1_tiles is None else l1_tiles.data_ptr()),
-            kernels.stream_arg(dev))
+            n, n_comp, s_, w_, kernels.stream_arg(dev))
         xresample_mids_levels_cuda.launches += 1
     return outs
 
@@ -154,50 +140,3 @@ def xresample_mids(zvs: torch.Tensor, qx: torch.Tensor,
     """``xresample_mids_levels`` for one level."""
     return xresample_mids_levels([zvs], [qx], plain=plain)[0]
 
-
-def xresample_mids_per_level_cuda(zvs: torch.Tensor,
-                                  qx: torch.Tensor) -> torch.Tensor:
-    """The one-launch-per-level kernel (``owx_xresample_mids``), which
-    ``chip_smoke.py`` times beside K6; no render path calls it."""
-    from .. import kernels
-
-    dev = zvs.device
-    if dev.type != "cuda":
-        raise ValueError(f"xresample_mids_per_level_cuda needs CUDA "
-                         f"tensors, got {dev}")
-    n_comp, s_, w_ = _levels_shape([zvs], [qx])
-    ny, nx = zvs.shape[2:]
-    kernels.check_tensor("zvs", zvs, dev, (n_comp, s_, ny, nx))
-    kernels.check_tensor("qx", qx, dev, (s_, w_))
-    out = torch.empty((n_comp, s_, ny, w_), dtype=torch.float32, device=dev)
-    vp = ctypes.c_void_p
-    kernels.launch("owx_xresample_mids", "K6 per level", vp(zvs.data_ptr()),
-                   vp(qx.data_ptr()), vp(out.data_ptr()), n_comp, s_, ny,
-                   nx, w_, kernels.stream_arg(dev))
-    return out
-
-
-def k6_l1_tiles(zvs_list, qx_list) -> int:
-    """The staged body's tiles whose lattice window does not fit its
-    shared memory (those read through L1), counted on the host from the
-    same taps: per (level, slab, column tile) the window [min i0, max
-    i1], then per row tile its (C+1) rows x (window + 3, rounded up to 4)
-    floats against ``K6_STAGE_FLOATS``."""
-    n_comp, _, w_ = _levels_shape(zvs_list, qx_list)
-    ct = -(-w_ // K6_TILE_COLS)
-    pad = ct * K6_TILE_COLS - w_
-    count = 0
-    for z, q in zip(zvs_list, qx_list):
-        ny, nx = z.shape[2:]
-        (i0, i1), _, _ = tent_taps(q.float(), nx)
-        lo = torch.nn.functional.pad(i0, (0, pad), value=nx).reshape(
-            q.shape[0], ct, K6_TILE_COLS).amin(-1)
-        hi = torch.nn.functional.pad(i1, (0, pad), value=-1).reshape(
-            q.shape[0], ct, K6_TILE_COLS).amax(-1)
-        stride = (hi - lo + 7) // 4 * 4  # (win + 6) & ~3
-        rows = torch.tensor([min(K6_TILE_ROWS, ny - y0)
-                             for y0 in range(0, ny, K6_TILE_ROWS)],
-                            device=q.device)
-        count += int((n_comp * rows[None, None, :] * stride[..., None]
-                      > K6_STAGE_FLOATS).sum())
-    return count

@@ -306,11 +306,8 @@ def test_k6_matches_plain_version(cuda):
 @pytest.mark.parametrize("case", ["levels4", "levels9", "ragged_w",
                                   "wide_window"])
 def test_k6_levels_bit_equal_plain(cuda, case):
-    """The level-batched K6 (its kept body, the per-thread body and the
-    staged body) and the per-level kernel against the plain version on
-    the card, bit for bit: one launch per 8 levels; the staged body
-    counts the tiles whose window outgrows its shared memory as the host
-    does (some only on the wide window)."""
+    """The level-batched K6 against the plain version on the card, bit
+    for bit, in one launch per 8 levels."""
     from owlexabrick_tpu_torch.render import mids as PM
 
     zvs_l, qx_l = k6_level_cases()[case]
@@ -321,16 +318,9 @@ def test_k6_levels_bit_equal_plain(cuda, case):
     got = PM.xresample_mids_levels(zt, qt)
     assert (PM.xresample_mids_levels_cuda.launches - n0
             == -(-len(zt) // PM.K6_MAX_LEVELS))
-    l1 = torch.zeros(1, dtype=torch.int32, device=cuda)
-    staged = PM.xresample_mids_levels_cuda(zt, qt, PM.K6_STAGED, l1)
-    thread = PM.xresample_mids_levels_cuda(zt, qt, PM.K6_THREAD)
-    per_level = [PM.xresample_mids_per_level_cuda(z, q)
-                 for z, q in zip(zt, qt)]
     torch.cuda.synchronize()
-    for outs in (got, staged, thread, per_level):
-        assert all(torch.equal(g, p) for g, p in zip(outs, want))
-    assert int(l1.item()) == PM.k6_l1_tiles(zt, qt)
-    assert (int(l1.item()) > 0) == (case == "wide_window")
+    assert len(got) == len(want)
+    assert all(torch.equal(g, p) for g, p in zip(got, want))
 
 
 def test_iso_on_card_matches_cpu(cuda):

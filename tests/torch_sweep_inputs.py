@@ -86,8 +86,8 @@ def k6_level_cases():
     sitting on lattice points.  "levels4": a chunk's 4 levels; "levels9":
     9 levels, two launches' worth; "ragged_w": W no multiple of 4 or of
     the column tile; "wide_window": a lattice ~2.7x denser than the
-    screen, so the staged kernel's window outgrows its shared memory on
-    one level (and fits on the other)."""
+    screen on one level, so a block's columns reach ~690 lattice columns
+    (and a sparse one on the other)."""
     rng = np.random.default_rng(66)
 
     def level(c1, s_, ny, nx, w):
