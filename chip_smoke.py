@@ -8,8 +8,8 @@ drives the port's four paths on the card: the axis-aligned slab-sweep
 DVR (camera products whose x stage is K6, then the sweep K1), the
 shear-warp tilted-camera path (an axis-aligned lattice camera swept by
 K6 + K1, then the two-pass warp K2a + K2b), the sweep's einsum lane (the
-clip box, DVR gradient shading and multi-channel clip: fields rebuilt
-per slab, then K3 or K4) and the iso-surface path (the iso sweep, its
+clip box: each level's mids by K6, then K3; DVR gradient shading and
+multi-channel clip: fields rebuilt per slab, then K4) and the iso-surface path (the iso sweep, its
 colormap recolor through K5, the volume stopped at the hits by K1's
 surface stop).  Phases, each of which fails the run:
 
@@ -42,10 +42,15 @@ surface stop).  Phases, each of which fails the run:
    progressive frames of ``headline_tilted`` through the ``Renderer``;
 7. every row's kernel frame against the plain-torch frame (plain x
    stage, plain sweep, plain warp) on the card;
-8. K3 and K4 (``csrc/xf.cu``) against ``composite_chunk_reference`` /
-   ``classify_field_reference`` on seeded 1080p fields at S = 12 and
-   S = 24 and on a real chunk of the ``headline_clip`` row, with times
-   from CUDA events;
+8. K4 (``csrc/xf.cu``) against ``classify_field_reference`` on seeded
+   1080p fields at S = 12 and S = 24 and on the fields of a real chunk
+   of the ``headline_clip`` row, with times from CUDA events; K3 from
+   the mids (``csrc/xf.cu``: the y lerp of each level's mids, the clip
+   masks and the composite) bit for bit against
+   ``composite_mids_reference`` on a real chunk of ``headline_clip``,
+   ``blobs256_clip`` and ``headline_tilted_clip``, timed by CUDA events
+   and graph replay beside the old route on the same chunk (the torch y
+   stage, then the fields' K3) and its second, staged body;
 9. the einsum lane at 1920x1080 (uncached: it has no product cache):
    the clipbox golden's box scaled to n on the headline (aligned,
    ``headline_clip``; through shear-warp, ``headline_tilted_clip``) and
@@ -73,7 +78,9 @@ surface stop).  Phases, each of which fails the run:
 Launch counts are set to 0 just before each path (aligned, tilted,
 einsum lane, iso) and read just after; a kernel of a path that launched
 no time there fails the run, and so does an uncached megakernel frame
-whose K6 launches are not one per 8 levels of every chunk it swept.
+whose K6 launches are not one per 8 levels of every chunk it swept, and
+a one-channel clip frame that does not launch K3 once per live chunk and
+K6 once per 8 occupied levels of each.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s (the H100 SXM's published peaks), counted from this
@@ -132,7 +139,7 @@ OPS_K1_BASE, OPS_K3, OPS_K4, OPS_K2, OPS_K5, OPS_K6 = 30, 30, 25, 20, 8, 3
 # the port's kernel functions in csrc/ (profiler kernel names) by id
 PORT_KERNELS = {"sweep_kernel": "K1", "warp_pass1_kernel": "K2a",
                 "warp_pass2_kernel": "K2b",
-                "composite_chunk_kernel": "K3",
+                "composite_mids_kernel": "K3",
                 "classify_field_kernel": "K4", "xf_classify_kernel": "K5",
                 "xresample_levels_kernel": "K6"}
 # the iso rows' iso value as a fraction of the scene's value maximum: the
@@ -641,14 +648,14 @@ def render_row(row, width, height, cfg=None, cache=None):
 
 def _launchers():
     from owlexabrick_tpu_torch.render.classify import (
-        classify_field_cuda, composite_chunk_cuda, xf_classify_cuda)
+        classify_field_cuda, composite_mids_cuda, xf_classify_cuda)
     from owlexabrick_tpu_torch.render.mids import xresample_mids_levels_cuda
     from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
     from owlexabrick_tpu_torch.render.warp import (
         warp_pass1_cuda, warp_pass2_cuda)
 
     return dict(K1=sweep_chunk_cuda, K2a=warp_pass1_cuda,
-                K2b=warp_pass2_cuda, K3=composite_chunk_cuda,
+                K2b=warp_pass2_cuda, K3=composite_mids_cuda,
                 K4=classify_field_cuda, K5=xf_classify_cuda,
                 K6=xresample_mids_levels_cuda)
 
@@ -851,82 +858,129 @@ def render_lane(row, width, height, plain=False):
     return warp_image(rgba, sw, width, height, plain=plain)
 
 
-def xf_check(name, sw, swv, sec, live, lut, dom, dz):
-    """K3 and K4 against their plain versions on one chunk's fields, with
-    times from CUDA events and the bounds of this chunk's work."""
+def xf_check(name, sw, swv, sec, lut, dom, dz):
+    """K4 against its plain version on one chunk's fields, with times
+    from CUDA events and the bound of this chunk's work."""
     import torch
 
     from owlexabrick_tpu_torch.render import classify as PC
 
     args4 = (sw, swv, sec, lut, dom, dz)
-    args3 = (sw, swv, sec, live, lut, dom, dz)
     k4 = PC.classify_field_cuda(*args4)
     p4 = PC.classify_field_reference(*args4)
-    k3 = PC.composite_chunk_cuda(*args3)
-    p3 = PC.composite_chunk_reference(*args3)
     torch.cuda.synchronize()
     e4 = max(float((a - b).abs().max()) for a, b in zip(k4, p4))
-    e3 = max(float((a - b).abs().max()) for a, b in zip(k3, p3))
-    finite = all(bool(torch.isfinite(t).all()) for t in (*k4, *k3))
-    s_, h, w = sw.shape
-    n_live = int(live.sum())
-    res = dict(name=name, shape=[s_, h, w], live_slabs=n_live,
+    finite = all(bool(torch.isfinite(t).all()) for t in k4)
+    res = dict(name=name, shape=list(sw.shape),
                valid_share=float((sw > 1e-20).float().mean()),
-               k3_max_abs_err=e3, k4_max_abs_err=e4,
-               k3_trans_mean=float(k3[1].mean()),
-               k4_alpha_mean=float(k4[3].mean()))
-    res["k3_ms"] = time_ms(lambda: PC.composite_chunk_cuda(*args3), 50)
-    res["k3_plain_ms"] = time_ms(
-        lambda: PC.composite_chunk_reference(*args3), 3, warmup=1)
+               k4_max_abs_err=e4, k4_alpha_mean=float(k4[3].mean()))
     res["k4_ms"] = time_ms(lambda: PC.classify_field_cuda(*args4), 50)
     res["k4_plain_ms"] = time_ms(
         lambda: PC.classify_field_reference(*args4), 3, warmup=1)
-    # K3 skips a dead slab's reads; K4 reads and writes every slab
-    res["k3_bound_ms"], res["k3_bound_by"] = bound(
-        2 * 4 * n_live * h * w + nbytes(sec, live, lut, *k3),
-        OPS_K3 * n_live * h * w)
     res["k4_bound_ms"], res["k4_bound_by"] = bound(
         nbytes(sw, swv, sec, lut, *k4), OPS_K4 * sw.numel())
     log("xf check:", json.dumps(res))
-    if not finite or not (e3 <= TOL_XF and e4 <= TOL_XF):
-        raise SystemExit(f"K3/K4 disagree with their plain versions on "
-                         f"{name}: {e3}, {e4} (finite={finite})")
+    if not finite or not e4 <= TOL_XF:
+        raise SystemExit(f"K4 disagrees with its plain version on {name}: "
+                         f"{e4} (finite={finite})")
+    return res
+
+
+def k3_check(name, args):
+    """K3 from the mids against its plain version on one chunk's inputs
+    (mids, y taps, scale, t_start, t_stop, sec, LUT, domain, dz), bit for
+    bit; times from CUDA events (``ms_events``) and from CUDA-graph
+    replay (``ms``), the two bodies in turns (A: loads from global
+    memory, B: rows staged by cp.async), beside the old route on the same
+    chunk (the torch y stage and masks, then the fields' K3) and the
+    plain version; the bound of this chunk's work."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    mids, taps, scale, t_start, t_stop, sec, lut, dom, dz = args
+
+    def body(variant):
+        return lambda: PC.composite_mids_cuda(*args, variant=variant)
+
+    want = PC.composite_mids_reference(*args)
+    got = {v: body(v)() for v in (0, 1)}
+    torch.cuda.synchronize()
+    err = max(float((g - p).abs().max()) for v in got
+              for g, p in zip(got[v], want))
+    exact = {v: all(torch.equal(g, p) for g, p in zip(got[v], want))
+             for v in got}
+    finite = all(bool(torch.isfinite(t).all()) for t in got[0])
+    s_ = scale.shape[0]
+    h, w = sec.shape
+    sw, swv = PC.mids_fields_reference(mids, taps, scale, t_start, t_stop,
+                                       h, w)
+    live = torch.ones(s_, dtype=torch.float32, device=sec.device)
+
+    def old_route():
+        f = PC.mids_fields_reference(mids, taps, scale, t_start, t_stop, h,
+                                     w)
+        return PC.composite_chunk_cuda(f[0], f[1], sec, live, lut, dom, dz)
+
+    res = dict(name=name, slabs=s_, ny=[int(m.shape[2]) for m in mids],
+               H=h, W=w, valid_share=float((sw > 1e-20).float().mean()),
+               max_abs_err=err, bit_equal=exact[0],
+               staged_bit_equal=exact[1],
+               trans_mean=float(got[0][1].mean()))
+    turns = [graph_ms(body(v), 50) for v in (0, 1, 1, 0)]
+    res["ms"] = (turns[0] + turns[3]) / 2
+    res["staged_ms"] = (turns[1] + turns[2]) / 2
+    res["turns_ms"] = turns
+    res["ms_events"] = time_ms(body(0), 50)
+    res["staged_ms_events"] = time_ms(body(1), 50)
+    res["old_route_ms"] = time_ms(old_route, 10)
+    res["old_k3_ms"] = time_ms(
+        lambda: PC.composite_chunk_cuda(sw, swv, sec, live, lut, dom, dz),
+        50)
+    res["plain_ms"] = time_ms(lambda: PC.composite_mids_reference(*args), 3,
+                              warmup=1)
+    res["library_ms"] = None
+    # each level's mids, taps and the per-pixel inputs read once, r, g,
+    # b, T written once; 3 operations per level and component per sample
+    # (the y lerp) and OPS_K3 for the classification and composite
+    res["bound_ms"], res["bound_by"] = bound(
+        nbytes(*mids, *taps, scale, t_start, t_stop, sec, lut, *got[0]),
+        (6 * len(mids) + OPS_K3) * s_ * h * w)
+    log("k3 check:", json.dumps(res))
+    if not finite or not (exact[0] and exact[1]):
+        raise SystemExit(f"K3 differs from its plain version on {name}: "
+                         f"{err} (finite={finite}, bit-equal {exact})")
     return res
 
 
 def capture_chunk(row, width, height):
-    """The fields the einsum lane hands K3 in one frame of ``row`` (sw
-    with the clip masks applied, swv, sec, live, LUT, domain, dz), cloned,
-    of the chunk with the most valid samples."""
-    import torch
-
+    """K3's inputs in one frame of ``row`` (mids, y taps, scale, t_start,
+    t_stop, sec, LUT, domain, dz), cloned, of the chunk with the most
+    valid samples."""
+    from owlexabrick_tpu_torch.render import classify as PC
     from owlexabrick_tpu_torch.render import slabs
 
-    seen = []
-    run = slabs.composite_chunk
+    calls = capture_all_calls(slabs, "composite_mids",
+                              lambda: render_lane(row, width, height))
 
-    def spy(*args, **kw):
-        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                          for a in args))
-        return run(*args, **kw)
+    def valid(a):
+        h, w = a[5].shape
+        return int((PC.mids_fields_reference(*a[:5], h, w)[0]
+                    > 1e-20).sum())
 
-    slabs.composite_chunk = spy
-    try:
-        render_lane(row, width, height)
-    finally:
-        slabs.composite_chunk = run
-    if not seen:
-        raise SystemExit("the headline_clip row launched K3 no time")
-    return max(seen, key=lambda a: int((a[0] > 1e-20).sum()))
+    return max(calls, key=valid)
 
 
 def phase_xf(lanes, width, height, device):
     """K3 and K4 against their plain versions at the lane's 1080p shapes:
-    seeded fields at S = 12 and S = 24 (invalid samples, values beyond
-    the TF domain, a dead slab) with the headline's sec, LUT and dz, and
-    a real chunk of the headline_clip row."""
+    K4 on seeded fields at S = 12 and S = 24 (invalid samples, values
+    beyond the TF domain) with the headline's sec, LUT and dz, and on the
+    fields of a real headline_clip chunk; K3 on a real chunk of each clip
+    row (``headline_clip``, ``blobs256_clip``, ``headline_tilted_clip``,
+    on its 2944x1624 lattice).  Returns (K4 results, K3 results)."""
     import torch
 
+    from owlexabrick_tpu_torch.render import classify as PC
     from owlexabrick_tpu_torch.render import slabs
 
     grids, cam, fs, cfg = (lanes["headline_clip"][k]
@@ -936,7 +990,7 @@ def phase_xf(lanes, width, height, device):
     lut = torch.from_numpy(slabs.scaled_luts(fs, 1)[0]).to(device)
     dom = np.asarray(fs.xf_domain[0], np.float32)
     dz = slabs.slab_spacing(grids, cfg.nslabs)
-    results = []
+    k4 = []
     for s_ in (12, 24):
         g = torch.Generator(device=device).manual_seed(100 + s_)
 
@@ -947,20 +1001,30 @@ def phase_xf(lanes, width, height, device):
         sw = torch.where(rand() < 0.15, 0.0, 2.0 * rand())
         value = float(dom[1]) * (1.2 * rand() - 0.1)
         swv = value * torch.where(sw > 0, sw, 1.0)
-        live = torch.ones(s_, dtype=torch.bool, device=device)
-        live[1] = False
-        results.append(xf_check(f"seeded_S{s_}", sw, swv, sec, live, lut,
-                                dom, dz))
+        k4.append(xf_check(f"seeded_S{s_}", sw, swv, sec, lut, dom, dz))
         del sw, swv, value
-    real = capture_chunk(lanes["headline_clip"], width, height)
-    results.append(xf_check("headline_clip_real_chunk", *real))
-    return results
+    k3 = []
+    for name in ("headline_clip", "blobs256_clip", "headline_tilted_clip"):
+        real = capture_chunk(lanes[name], width, height)
+        k3.append(k3_check(f"{name}_real_chunk", real))
+        if name == "headline_clip":
+            h, w = real[5].shape
+            sw, swv = PC.mids_fields_reference(*real[:5], h, w)
+            k4.append(xf_check("headline_clip_real_chunk", sw, swv,
+                               *real[5:]))
+        del real
+    return k4, k3
 
 
 def phase_lane_rows(rows, width, height, n_timed=3):
     """Each einsum-lane row at full size (uncached: the lane has no
-    product cache); returns the kernel frames for the plain comparison."""
+    product cache); returns the kernel frames for the plain comparison.
+    A one-channel clip row's first frame must launch K3 once per chunk
+    with a live slab and K6 once per 8 occupied levels of each."""
     import torch
+
+    from owlexabrick_tpu_torch.render import slabs
+    from owlexabrick_tpu_torch.render.mids import K6_MAX_LEVELS
 
     frames = {}
     for name, row in rows.items():
@@ -975,7 +1039,21 @@ def phase_lane_rows(rows, width, height, n_timed=3):
             torch.cuda.synchronize()
             return out, (time.perf_counter() - t0) * 1e3
 
-        first, first_ms = frame()
+        # the first frame's live chunks, by their occupied levels
+        chunks = []
+        mids = slabs._EinsumLane.mids
+
+        def spy(lane, z_s, occ_s, scale):
+            chunks.append(sum(bool(o.any()) for o in occ_s))
+            return mids(lane, z_s, occ_s, scale)
+
+        f0 = launch_counts()
+        slabs._EinsumLane.mids = spy
+        try:
+            first, first_ms = frame()
+        finally:
+            slabs._EinsumLane.mids = mids
+        f1 = launch_counts()
         times = [first_ms] + [frame()[1] for _ in range(n_timed)]
         rec = dict(
             row=name, frames_ms=[round(t, 3) for t in times],
@@ -988,9 +1066,19 @@ def phase_lane_rows(rows, width, height, n_timed=3):
         rec.update({f"{k}_launches": v - n0[k]
                     for k, v in launch_counts().items()})
         rec["alpha_mean"] = float(first[:, 3].mean())
+        clip = cfg.num_channels == 1 and not cfg.gradient_shading_dvr
+        if clip:
+            # K3 once per live chunk, K6 once per 8 occupied levels of it
+            rec["live_chunks_first_frame"] = len(chunks)
+            got = tuple(f1[k] - f0[k] for k in ("K3", "K6"))
+            want = (len(chunks), sum(-(-n // K6_MAX_LEVELS) for n in chunks))
+            rec["k3_k6_launches_first_frame"] = list(got)
         log("einsum lane:", json.dumps(rec))
         if not bool(torch.isfinite(first).all()) or rec["alpha_mean"] <= 1e-3:
             raise SystemExit(f"{name}: frame not finite or blank")
+        if clip and (not chunks or got != want):
+            raise SystemExit(f"{name}: {len(chunks)} live chunks took "
+                             f"(K3, K6) launches {got}, not {want}")
         frames[name] = first
     return frames
 
@@ -1567,13 +1655,13 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     lanes = lane_setups(setups, tilted, dev)
-    xf = phase_xf(lanes, width, height, dev)
+    xf, k3 = phase_xf(lanes, width, height, dev)
     reset_launch_counts()
     lane_frames = phase_lane_rows(lanes, width, height)
     phase_renderer_lane(setups, tilted, 64, width, height, dev)
     einsum = launch_counts()
     log("launches on the einsum path:", json.dumps(einsum))
-    if min(einsum[k] for k in ("K3", "K4", "K2a", "K2b")) <= 0:
+    if min(einsum[k] for k in ("K3", "K4", "K2a", "K2b", "K6")) <= 0:
         raise SystemExit(f"the einsum path left a kernel unlaunched: "
                          f"{einsum}")
     phase_lane_plain(lanes, lane_frames, width, height)
@@ -1603,6 +1691,7 @@ def main() -> int:
     timed = next(r for r in k1 if r["name"] == "headline_seeded_knots")
     k2_rows = next(r for r in k2 if r["channels"] == 4)
     xf_real = next(r for r in xf if r["name"] == "headline_clip_real_chunk")
+    k3_real = next(r for r in k3 if r["name"] == "headline_clip_real_chunk")
     k5_real = next(r for r in k5 if r["name"].endswith("_hits"))
     k6_chunk = next(r for r in k6 if r["name"] == "headline_chunk")
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
@@ -1631,9 +1720,9 @@ def main() -> int:
         entry("K2b warp pass 2 (horizontal Catmull-Rom)", src_warp,
               K2B_REPLACES, "K2b", max(r["k2b_max_abs_err"] for r in k2),
               k2_rows, "k2b_"),
-        entry("K3 classify + composite a chunk (one channel)", src_xf,
-              K3_REPLACES, "K3", max(r["k3_max_abs_err"] for r in xf),
-              xf_real, "k3_"),
+        entry("K3 y lerp of the mids, clip masks, classify + composite a "
+              "chunk (one channel)", src_xf, K3_REPLACES, "K3",
+              max(r["max_abs_err"] for r in k3), k3_real),
         entry("K4 classify a field per slab", src_xf, K4_REPLACES, "K4",
               max(r["k4_max_abs_err"] for r in xf), xf_real, "k4_"),
         entry("K5 LUT lookup (iso colormap recolor)", src_xf, K5_REPLACES,

@@ -162,6 +162,245 @@ composite_chunk_kernel(const float* __restrict__ sw,
   out[3 * p.hw + px] = t;
 }
 
+// ---------------------------------------------------------------------------
+// K3 from the mids: the y stage, the clip masks and the composite of a
+// chunk in one pass, one thread per pixel.
+//
+// Per occupied level l (at most kMaxLevels, in level order): mids (2, S,
+// ny_l, W), the value channel then the mask, z- and x-lerped (K6), and
+// taps (S, H) float4 (w0, w1, r0, r1): the y tent's weights and rows at
+// every slab and screen row (mids.py::tent_taps, rows stored as floats).
+// The S slabs are the chunk's live ones.  Per pixel (y, x) and slab s:
+//   swv = sum_l (w0 * mid_l[0, s, r0, x] + w1 * mid_l[0, s, r1, x])
+//   sw  = the same over mid_l[1]
+//   sw  = 0 unless scale[s] < t_stop[y, x], then unless >= t_start[y, x]
+// then the classification, opacity and front-to-back composite above.
+
+constexpr int kLevels = 8;  // levels per launch (kernels.MAX_LEVELS)
+constexpr int kBlockX = 32, kBlockY = 8;  // columns x rows, 256 threads
+constexpr int kSlabUnroll = 4;  // slabs whose loads start together
+constexpr int kStageRows = 8;   // staged body: lattice rows per level
+
+struct MidsLevel {
+  const float* mids;   // (2, S, ny, W)
+  const float4* taps;  // (S, H): w0, w1, r0, r1
+  int ny;
+};
+
+struct MidsParams {
+  MidsLevel lv[kLevels];
+  const float* scale;    // (S,)
+  const float* t_start;  // (H, W) or null
+  const float* t_stop;   // (H, W) or null
+  const float* sec;      // (H, W)
+  const float* lut;      // (n, 4)
+  float* out;            // (4, H, W)
+  int n_levels, S, H, W, n;
+  float lo, hi, dz;
+};
+
+struct Pixel {
+  float e, t_start, t_stop;
+  float r, g, b, t;
+};
+
+__device__ __forceinline__ void mids_prologue(const MidsParams& p,
+                                              float4* s_lut,
+                                              float* s_scale) {
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  for (int i = tid; i < p.n; i += kThreads)
+    s_lut[i] = make_float4(p.lut[4 * i], p.lut[4 * i + 1], p.lut[4 * i + 2],
+                           p.lut[4 * i + 3]);
+  for (int i = tid; i < p.S; i += kThreads) s_scale[i] = p.scale[i];
+}
+
+__device__ __forceinline__ Pixel pixel_start(const MidsParams& p,
+                                             size_t px) {
+  Pixel q;
+  q.e = p.dz * p.sec[px];
+  q.t_start = p.t_start ? p.t_start[px] : 0.0f;
+  q.t_stop = p.t_stop ? p.t_stop[px] : 0.0f;
+  q.r = q.g = q.b = 0.0f;
+  q.t = 1.0f;
+  return q;
+}
+
+// one slab of the pixel: the clip masks on sw (chunk's order: t_stop,
+// then t_start), then today's K3 body
+__device__ __forceinline__ void composite_sample(const MidsParams& p,
+                                                 const float4* s_lut,
+                                                 float scale, float sw,
+                                                 float swv, Pixel& q) {
+  if (p.t_stop && !(scale < q.t_stop)) sw = 0.0f;
+  if (p.t_start && !(scale >= q.t_start)) sw = 0.0f;
+  const bool ok = sw > 1e-20f;
+  const float value = swv / (ok ? sw : 1.0f);
+  const float4 c = classify(s_lut, p.n, value, p.lo, p.hi);
+  const float a = ok ? opacity(c.w, q.e) : 0.0f;
+  const float contrib = q.t * a;
+  q.r = q.r + contrib * c.x;
+  q.g = q.g + contrib * c.y;
+  q.b = q.b + contrib * c.z;
+  q.t = q.t * (1.0f - a);
+}
+
+__device__ __forceinline__ void pixel_store(const MidsParams& p, size_t px,
+                                            const Pixel& q) {
+  const size_t hw = (size_t)p.H * p.W;
+  p.out[px] = q.r;
+  p.out[hw + px] = q.g;
+  p.out[2 * hw + px] = q.b;
+  p.out[3 * hw + px] = q.t;
+}
+
+// Body A: every mid load from global memory (L1 / L2), kSlabUnroll
+// slabs at a time: per level, the slabs' taps, then all 4 kSlabUnroll
+// mid loads, then their lerps.  Grid (ceil(W / 32), ceil(H / 8)).
+__global__ void __launch_bounds__(kThreads)
+composite_mids_kernel(const __grid_constant__ MidsParams p) {
+  __shared__ float4 s_lut[kMaxTexels];
+  __shared__ float s_scale[kMaxSlabs];
+  mids_prologue(p, s_lut, s_scale);
+  __syncthreads();
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= p.W || y >= p.H) return;
+  const size_t px = (size_t)y * p.W + x;
+  Pixel q = pixel_start(p, px);
+  for (int s0 = 0; s0 < p.S; s0 += kSlabUnroll) {
+    float sw[kSlabUnroll], swv[kSlabUnroll];
+#pragma unroll
+    for (int k = 0; k < kSlabUnroll; ++k) sw[k] = swv[k] = 0.0f;
+    for (int l = 0; l < p.n_levels; ++l) {
+      const MidsLevel& L = p.lv[l];
+      const size_t plane = (size_t)L.ny * p.W;  // one slab's (ny, W)
+      const size_t comp = plane * p.S;          // one component's
+      float4 tp[kSlabUnroll];
+#pragma unroll
+      for (int k = 0; k < kSlabUnroll; ++k)
+        tp[k] = __ldg(L.taps + (size_t)min(s0 + k, p.S - 1) * p.H + y);
+      float v0[kSlabUnroll], v1[kSlabUnroll], m0[kSlabUnroll],
+          m1[kSlabUnroll];
+#pragma unroll
+      for (int k = 0; k < kSlabUnroll; ++k) {
+        const float* __restrict__ v =
+            L.mids + (size_t)min(s0 + k, p.S - 1) * plane + x;
+        const size_t o0 = (size_t)(int)tp[k].z * p.W;
+        const size_t o1 = (size_t)(int)tp[k].w * p.W;
+        v0[k] = __ldg(v + o0);
+        v1[k] = __ldg(v + o1);
+        m0[k] = __ldg(v + comp + o0);
+        m1[k] = __ldg(v + comp + o1);
+      }
+#pragma unroll
+      for (int k = 0; k < kSlabUnroll; ++k) {
+        swv[k] = swv[k] + (tp[k].x * v0[k] + tp[k].y * v1[k]);
+        sw[k] = sw[k] + (tp[k].x * m0[k] + tp[k].y * m1[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSlabUnroll; ++k)
+      if (s0 + k < p.S)
+        composite_sample(p, s_lut, s_scale[s0 + k], sw[k], swv[k], q);
+  }
+  pixel_store(p, px, q);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Body B (staged, to compare): per slab and level, the block's window of
+// up to kStageRows lattice rows x 32 columns x 2 components is copied to
+// shared memory with cp.async, double-buffered one slab ahead; a thread
+// whose rows fall outside its level's window reads them from global
+// memory.  The window starts at the least r0 of the block's first and
+// last rows (the rows are monotone in y).
+struct Stage {
+  float mid[kLevels][2][kStageRows][kBlockX];
+  int row0[kLevels], rows[kLevels];
+};
+
+__device__ __forceinline__ void stage_slab(const MidsParams& p, Stage& st,
+                                           int s, int y0, int y1, int x0,
+                                           int tid) {
+  for (int l = 0; l < p.n_levels; ++l) {
+    const MidsLevel& L = p.lv[l];
+    const float4 a = __ldg(L.taps + (size_t)s * p.H + y0);
+    const float4 b = __ldg(L.taps + (size_t)s * p.H + y1);
+    const int lo = min((int)a.z, (int)b.z);
+    const int rows = min(max((int)a.w, (int)b.w) - lo + 1, kStageRows);
+    if (tid == 0) {
+      st.row0[l] = lo;
+      st.rows[l] = rows;
+    }
+    const size_t plane = (size_t)L.ny * p.W;
+    const float* src = L.mids + (size_t)s * plane + (size_t)lo * p.W + x0;
+    for (int e = tid; e < 2 * kStageRows * kBlockX; e += kThreads) {
+      const int c = e / (kStageRows * kBlockX);
+      const int row = (e / kBlockX) % kStageRows;
+      const int col = e % kBlockX;
+      if (row < rows && x0 + col < p.W)
+        cp_async4(&st.mid[l][c][row][col],
+                  src + c * plane * p.S + (size_t)row * p.W + col);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+composite_mids_staged_kernel(const __grid_constant__ MidsParams p) {
+  __shared__ float4 s_lut[kMaxTexels];
+  __shared__ float s_scale[kMaxSlabs];
+  __shared__ Stage s_st[2];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  mids_prologue(p, s_lut, s_scale);
+  const int x0 = blockIdx.x * kBlockX, y0 = blockIdx.y * kBlockY;
+  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
+  const int y1 = min(y0 + kBlockY, p.H) - 1;
+  const bool active = x < p.W && y < p.H;
+  const size_t px = (size_t)min(y, p.H - 1) * p.W + min(x, p.W - 1);
+  Pixel q = pixel_start(p, px);
+  stage_slab(p, s_st[0], 0, y0, y1, x0, tid);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int s = 0; s < p.S; ++s) {
+    if (s + 1 < p.S) stage_slab(p, s_st[(s + 1) & 1], s + 1, y0, y1, x0, tid);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    if (active) {
+      const Stage& st = s_st[s & 1];
+      float sw = 0.0f, swv = 0.0f;
+      for (int l = 0; l < p.n_levels; ++l) {
+        const MidsLevel& L = p.lv[l];
+        const float4 tp = __ldg(L.taps + (size_t)s * p.H + y);
+        const int r0 = (int)tp.z, r1 = (int)tp.w;
+        const int d0 = r0 - st.row0[l], d1 = r1 - st.row0[l];
+        float v0, v1, m0, m1;
+        if (d0 >= 0 && d1 < st.rows[l]) {
+          v0 = st.mid[l][0][d0][threadIdx.x];
+          v1 = st.mid[l][0][d1][threadIdx.x];
+          m0 = st.mid[l][1][d0][threadIdx.x];
+          m1 = st.mid[l][1][d1][threadIdx.x];
+        } else {
+          const size_t plane = (size_t)L.ny * p.W;
+          const float* v = L.mids + (size_t)s * plane + x;
+          v0 = __ldg(v + (size_t)r0 * p.W);
+          v1 = __ldg(v + (size_t)r1 * p.W);
+          m0 = __ldg(v + plane * p.S + (size_t)r0 * p.W);
+          m1 = __ldg(v + plane * p.S + (size_t)r1 * p.W);
+        }
+        swv = swv + (tp.x * v0 + tp.y * v1);
+        sw = sw + (tp.x * m0 + tp.y * m1);
+      }
+      composite_sample(p, s_lut, s_scale[s], sw, swv, q);
+    }
+    __syncthreads();
+  }
+  if (active) pixel_store(p, px, q);
+}
+
 // K5: grid ceil(count / kThreads); out (4, count): r, g, b, a planes
 __global__ void __launch_bounds__(kThreads)
 xf_classify_kernel(const float* __restrict__ u,
@@ -244,5 +483,57 @@ extern "C" int owx_xf_classify(const void* u, const void* lut, void* out,
   const unsigned grid = (unsigned)((count + kThreads - 1) / kThreads);
   xf_classify_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)u, (const float*)lut, (float*)out, count, n);
+  return (int)cudaGetLastError();
+}
+
+// K3 from the mids, one launch for a chunk's n_levels <= kLevels occupied
+// levels (0 gives a transparent chunk): per level l, mids[l] (2, S,
+// ny[l], W) and taps[l] (S, H, 4); scale (S,), t_start / t_stop (H, W)
+// or null, sec (H, W), lut (n, 4), out (4, H, W): r, g, b, T, all
+// float32 contiguous.  variant 0: body A, 1: body B.  Returns the
+// launch's cudaError_t (0 = launched).
+extern "C" int owx_composite_mids(const void* const* mids,
+                                  const void* const* taps, const int* ny,
+                                  int n_levels, const void* scale,
+                                  const void* t_start, const void* t_stop,
+                                  const void* sec, const void* lut,
+                                  void* out, int S, int H, int W, int n,
+                                  float lo, float hi, float dz, int variant,
+                                  void* stream) {
+  if (n_levels < 0 || n_levels > kLevels || (n_levels && (!mids || !taps ||
+      !ny)) || !scale || !sec || !lut || !out || S < 1 || S > kMaxSlabs ||
+      H < 1 || W < 1 || n < 2 || n > kMaxTexels || variant < 0 ||
+      variant > 1)
+    return (int)cudaErrorInvalidValue;
+  MidsParams p = {};
+  for (int l = 0; l < n_levels; ++l) {
+    if (!mids[l] || !taps[l] || ny[l] < 1) return (int)cudaErrorInvalidValue;
+    p.lv[l].mids = (const float*)mids[l];
+    p.lv[l].taps = (const float4*)taps[l];
+    p.lv[l].ny = ny[l];
+  }
+  p.scale = (const float*)scale;
+  p.t_start = (const float*)t_start;
+  p.t_stop = (const float*)t_stop;
+  p.sec = (const float*)sec;
+  p.lut = (const float*)lut;
+  p.out = (float*)out;
+  p.n_levels = n_levels;
+  p.S = S;
+  p.H = H;
+  p.W = W;
+  p.n = n;
+  p.lo = lo;
+  p.hi = hi;
+  p.dz = dz;
+  const dim3 grid((unsigned)((W + kBlockX - 1) / kBlockX),
+                  (unsigned)((H + kBlockY - 1) / kBlockY));
+  const dim3 block(kBlockX, kBlockY);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  if (variant == 0)
+    composite_mids_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+  else
+    composite_mids_staged_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        p);
   return (int)cudaGetLastError();
 }

@@ -132,15 +132,19 @@ def load():
                                        vp]
         lib.owx_warp_pass2.restype = ci
         cf = ctypes.c_float
+        pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.owx_classify_field.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                            ci, cf, cf, cf, vp]
         lib.owx_classify_field.restype = ci
         lib.owx_composite_chunk.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                             ci, ci, cf, cf, cf, vp]
         lib.owx_composite_chunk.restype = ci
+        lib.owx_composite_mids.argtypes = [pv, pv, pi, ci, vp, vp, vp, vp,
+                                           vp, vp, ci, ci, ci, ci, cf, cf,
+                                           cf, ci, vp]
+        lib.owx_composite_mids.restype = ci
         lib.owx_xf_classify.argtypes = [vp, vp, vp, ll, ci, vp]
         lib.owx_xf_classify.restype = ci
-        pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.owx_xresample_levels.argtypes = [pv, pv, pv, pi, pi, ci, ci, ci,
                                              ci, vp]
         lib.owx_xresample_levels.restype = ci

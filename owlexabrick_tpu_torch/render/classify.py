@@ -121,6 +121,121 @@ def composite_chunk_reference(sw, swv, sec, live, lut, domain, dz):
     return torch.stack([r_acc, g_acc, b_acc]), t_run
 
 
+def mids_fields_reference(mids, ytaps, scale, t_start, t_stop, height,
+                          width):
+    """The y stage and the clip masks of K3 in plain torch: per level, in
+    level order, ``acc = acc + (w0 * mid[r0] + w1 * mid[r1])`` at every
+    screen row (``_lerp_y``'s form), then sw = 0 unless scale < t_stop,
+    then unless scale >= t_start (``_EinsumLane.chunk``'s order).
+    mids: per level (2, S, ny, W), the value channel then the mask;
+    ytaps: per level (S, H, 4), (w0, w1, r0, r1) as ``tent_taps`` gives
+    them (rows stored as floats); scale: (S,); t_start / t_stop: (H, W)
+    or None.  Returns (sw, swv), each (S, H, W)."""
+    s_ = scale.shape[0]
+    shape = (s_, height, width)
+    sw = torch.zeros(shape, dtype=torch.float32, device=scale.device)
+    swv = torch.zeros_like(sw)
+    for mid, tp in zip(mids, ytaps):
+        rows = [tp[..., 2 + t].to(torch.int64)[:, :, None].expand(shape)
+                for t in (0, 1)]
+
+        def lerp(m):
+            return (tp[..., 0][:, :, None] * torch.gather(m, 1, rows[0])
+                    + tp[..., 1][:, :, None] * torch.gather(m, 1, rows[1]))
+
+        swv = swv + lerp(mid[0])
+        sw = sw + lerp(mid[1])
+    sc = scale[:, None, None]
+    if t_stop is not None:
+        sw = torch.where(sc < t_stop[None], sw, 0.0)
+    if t_start is not None:
+        sw = torch.where(sc >= t_start[None], sw, 0.0)
+    return sw, swv
+
+
+def composite_mids_reference(mids, ytaps, scale, t_start, t_stop, sec, lut,
+                             domain, dz):
+    """Plain-torch K3: the same inputs and arithmetic as ``csrc/xf.cu``'s
+    composite_mids_kernel.  ``mids_fields_reference`` (the y stage and
+    the clip masks), then ``composite_chunk_reference`` over the S
+    slabs, every one live (the caller passes the chunk's live slabs
+    only).  sec: (H, W); lut, domain, dz as in
+    ``classify_field_reference``.  Returns (rgb (3, H, W), trans (H, W))
+    as ``composite_chunk_reference``."""
+    h, w = sec.shape
+    sw, swv = mids_fields_reference(mids, ytaps, scale, t_start, t_stop, h,
+                                    w)
+    live = torch.ones(scale.shape[0], dtype=torch.bool)
+    return composite_chunk_reference(sw, swv, sec, live, lut, domain, dz)
+
+
+def composite_mids_cuda(mids, ytaps, scale, t_start, t_stop, sec, lut,
+                        domain, dz, variant: int = 0):
+    """Launch K3 (``csrc/xf.cu``) on the current stream: one launch for
+    up to ``kernels.MAX_LEVELS`` levels (none gives a transparent chunk).
+    Same arguments and result as ``composite_mids_reference``; ``variant``
+    1 runs the staged body.  Raises on any input the kernel does not
+    take; never falls back."""
+    from .. import kernels
+
+    dev = sec.device
+    if dev.type != "cuda":
+        raise ValueError(f"composite_mids_cuda needs CUDA tensors, got {dev}")
+    if sec.dim() != 2 or scale.dim() != 1 or len(mids) != len(ytaps):
+        raise ValueError(f"need sec (H, W), scale (S,) and one taps table "
+                         f"per level, got {tuple(sec.shape)}, "
+                         f"{tuple(scale.shape)}, {len(mids)} / {len(ytaps)}")
+    h, w = sec.shape
+    s_ = scale.shape[0]
+    n = int(lut.shape[0])
+    if not 1 <= s_ <= kernels.MAX_SLABS:
+        raise ValueError(f"{s_} slabs; K3 takes 1..{kernels.MAX_SLABS}")
+    if len(mids) > kernels.MAX_LEVELS:
+        raise ValueError(f"{len(mids)} levels; K3 takes at most "
+                         f"{kernels.MAX_LEVELS}")
+    if not 2 <= n <= kernels.MAX_TEXELS:
+        raise ValueError(f"{n} LUT texels; K3 takes 2..{kernels.MAX_TEXELS}")
+    for m, tp in zip(mids, ytaps):
+        kernels.check_tensor("mids", m, dev, (2, s_, m.shape[2], w))
+        kernels.check_tensor("ytaps", tp, dev, (s_, h, 4))
+    kernels.check_tensor("scale", scale, dev, (s_,))
+    for name, t in (("t_start", t_start), ("t_stop", t_stop)):
+        if t is not None:
+            kernels.check_tensor(name, t, dev, (h, w))
+    kernels.check_tensor("sec", sec, dev, (h, w))
+    kernels.check_tensor("lut", lut, dev, (n, 4))
+    lo, hi = _domain(domain)
+    out = torch.empty((4, h, w), dtype=torch.float32, device=dev)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    nl = len(mids)
+
+    def ptr(t):
+        return vp(None if t is None else t.data_ptr())
+
+    kernels.launch("owx_composite_mids", "K3",
+                   (vp * nl)(*[m.data_ptr() for m in mids]),
+                   (vp * nl)(*[tp.data_ptr() for tp in ytaps]),
+                   (ci * nl)(*[m.shape[2] for m in mids]), nl, ptr(scale),
+                   ptr(t_start), ptr(t_stop), ptr(sec), ptr(lut), ptr(out),
+                   s_, h, w, n, cf(lo), cf(hi), cf(np.float32(dz)), variant,
+                   kernels.stream_arg(dev))
+    composite_mids_cuda.launches += 1
+    return out[:3], out[3]
+
+
+composite_mids_cuda.launches = 0
+
+
+def composite_mids(mids, ytaps, scale, t_start, t_stop, sec, lut, domain,
+                   dz, plain: bool = False):
+    """K3 for CUDA tensors, the plain version for CPU tensors (or
+    anywhere when ``plain``, the explicit choice a kernel-vs-plain
+    comparison makes)."""
+    fn = (composite_mids_reference if plain or sec.device.type == "cpu"
+          else composite_mids_cuda)
+    return fn(mids, ytaps, scale, t_start, t_stop, sec, lut, domain, dz)
+
+
 def _common(fn, sw, swv, sec, lut):
     """Checks shared by both launchers; returns (S, H, W, N)."""
     from .. import kernels

@@ -16,13 +16,15 @@ classification and front-to-back compositing, up to a per-pixel surface
 stop ``t_stop``.
 
 The einsum lane serves what the megakernel cannot: the clip box's
-per-pixel interval start ``t_start`` and DVR gradient shading.  Per
-chunk it rebuilds the fields sw, swv (and their gradients) at every
-pixel of every slab, z then x then y, with 2-tap lerps (plain torch, as
-the JAX package left them to XLA), then classifies them with K3 (one
-channel, composited in the kernel) or K4 (per channel, followed by the
-headlight shading, the channel merge and a cumprod composite in torch),
-``render/classify.py``.
+per-pixel interval start ``t_start`` and DVR gradient shading.  With one
+channel and no shading, per chunk it builds the live slabs' mids as the
+megakernel lane does (z lerp in torch, x lerp by K6) and K3 does the y
+lerp, the clip masks, the classification and the composite per pixel
+(``render/classify.py``).  Otherwise it rebuilds the fields sw, swv (and
+their gradients) at every pixel of every slab, z then x then y, with
+2-tap lerps (plain torch, as the JAX package left them to XLA), then
+classifies them with K4 per channel, followed by the headlight shading,
+the channel merge and a cumprod composite in torch.
 
 The iso sweep (``render_slabs_iso``) rebuilds the fields and their
 gradients per batch of active slabs in the JAX package's z, y, x order
@@ -47,7 +49,7 @@ import torch
 from ..core.constants import NUM_XF_VALUES, TERMINATION_THRESHOLD
 from .classify import (
     classify_field,
-    composite_chunk,
+    composite_mids,
     texel_coord,
     xf_classify,
 )
@@ -897,14 +899,18 @@ class _EinsumLane:
     """One frame's einsum lane (the JAX package's ``chunk_fields`` and its
     classification, slabs.py:1887-1993, 2054-2120).
 
-    Per chunk: the fields sw, swv[c] (S, H, W) at every pixel of every
-    slab, and with gradient shading their grid-frame (z, y, x) partials
-    dsw, dswv[c] (3, S, H, W), each as the JAX package contracts them —
-    z, then x, then y — but as fp32 2-tap lerps where the reference ran
-    dense tent einsums; the clip interval's masks on sw; then K3, or K4
-    per channel with the headlight shading, the live gate, the channel
-    merge in the reference's order and the exclusive-cumprod composite.
-    Returns the chunk's (rgb (3, H, W) premultiplied, trans (H, W))."""
+    One channel without shading (the clip box): per chunk, the live
+    slabs' per-level mids (z lerp in torch, x lerp by K6), then K3, which
+    does the y lerp, the clip interval's masks and the composite per
+    pixel, so no (S, H, W) field is built.  Otherwise: the fields sw,
+    swv[c] (S, H, W) at every pixel of every slab, and with gradient
+    shading their grid-frame (z, y, x) partials dsw, dswv[c] (3, S, H,
+    W), each as the JAX package contracts them — z, then x, then y — but
+    as fp32 2-tap lerps where the reference ran dense tent einsums; the
+    clip interval's masks on sw; then K4 per channel with the headlight
+    shading, the live gate, the channel merge in the reference's order
+    and the exclusive-cumprod composite.  Returns the chunk's (rgb (3, H,
+    W) premultiplied, trans (H, W))."""
 
     def __init__(self, grids, cfg, cam_pos, d00, rx, ry, sec, dz, luts,
                  domains, height, width, t_start, t_stop):
@@ -918,7 +924,8 @@ class _EinsumLane:
 
         def per_pixel(t):
             return (None if t is None else torch.as_tensor(
-                t, dtype=torch.float32).to(dev).reshape(height, width))
+                t, dtype=torch.float32).to(dev).reshape(height,
+                                                        width).contiguous())
 
         self.t_start, self.t_stop = per_pixel(t_start), per_pixel(t_stop)
         if cfg.gradient_shading_dvr:
@@ -973,8 +980,49 @@ class _EinsumLane:
             return acc[0], acc[1:], None, None
         return acc[0], acc[1:], dacc[0], dacc[1:]
 
+    def mids(self, z_s, occ_s, scale):
+        """The one-channel unshaded route's z and x stages: per occupied
+        level (``occ_s[li].any()``, as ``fields`` skips), in level order,
+        the (2, S, ny, W) mids of the value channel and the mask, z-lerped
+        in torch (``_lerp_z`` with ``tent_taps``' weights) and x-lerped to
+        screen columns by K6 (one launch for every level), and the (S, H,
+        4) y taps (w0, w1, r0, r1) of ``tent_taps``, rows as floats: K3's
+        inputs, the same lerps ``fields`` runs but for its y stage."""
+        g, dev = self.grids, self.dev
+        scale_d = scale.to(dev)
+        z_d = z_s.to(dev)
+        y_pos = self.oy + scale_d[:, None] * self.ry[None, :]  # (S, H)
+        x_pos = self.ox + scale_d[:, None] * self.rx[None, :]  # (S, W)
+        zvs_l, qx_l, taps_l = [], [], []
+        for li, L in enumerate(g.levels):
+            if not bool(occ_s[li].any()):
+                continue
+            cw = float(1 << L)
+            org = g.origins[li]
+            nz, ny, _ = g.masks[li].shape
+            iz, wz, _ = tent_taps(z_d / cw - _f32(org[0], dev) - 0.5, nz)
+            (iy0, iy1), (wy0, wy1), _ = tent_taps(
+                y_pos / cw - _f32(org[1], dev) - 0.5, ny)
+            zvs_l.append(torch.stack([_lerp_z(g.vals[li][0], iz, wz),
+                                      _lerp_z(g.masks[li], iz, wz)]))
+            qx_l.append((x_pos / cw - _f32(org[2], dev) - 0.5).contiguous())
+            taps_l.append(torch.stack([wy0, wy1, iy0.to(torch.float32),
+                                       iy1.to(torch.float32)], -1))
+        mids = (xresample_mids_levels(zvs_l, qx_l, plain=self.cfg.plain_sweep)
+                if zvs_l else [])
+        return mids, taps_l
+
     def chunk(self, z_s, occ_s, scale, live):
         cfg, dev = self.cfg, self.dev
+        plain = cfg.plain_sweep
+        if cfg.num_channels == 1 and not cfg.gradient_shading_dvr:
+            # K3 from the mids of the live slabs: no (S, H, W) field
+            keep = live.nonzero().squeeze(1)
+            mids, taps = self.mids(z_s[keep], occ_s, scale[keep])
+            return composite_mids(mids, taps, scale[keep].to(dev),
+                                  self.t_start, self.t_stop, self.sec,
+                                  self.luts[0], self.domains[0], self.dz,
+                                  plain=plain)
         sw, swv, dsw, dswv = self.fields(z_s, occ_s, scale)
         sc = scale.to(dev)[:, None, None]
         if self.t_stop is not None:
@@ -982,11 +1030,6 @@ class _EinsumLane:
         if self.t_start is not None:
             sw = torch.where(sc >= self.t_start[None], sw, 0.0)
         live_d = live.to(dev)
-        plain = cfg.plain_sweep
-        if cfg.num_channels == 1 and dsw is None:
-            return composite_chunk(sw, swv[0], self.sec, live_d,
-                                   self.luts[0], self.domains[0], self.dz,
-                                   plain=plain)
         slab_a = torch.zeros_like(sw)
         slab_rgb = torch.zeros((3,) + tuple(sw.shape), dtype=torch.float32,
                                device=dev)

@@ -1,5 +1,6 @@
 """PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
-surface stop), K2a/K2b (csrc/warp.cu), K3/K4/K5 (csrc/xf.cu) and K6
+surface stop), K2a/K2b (csrc/warp.cu), K3 (from the mids), K4, K5
+(csrc/xf.cu) and K6
 (csrc/mids.cu) against their plain-torch versions, and the port's main
 path, einsum lane and iso path on CUDA against the same paths on the
 CPU.  Marked ``cuda``; each test skips where no card
@@ -19,7 +20,8 @@ import torch
 from owlexabrick_tpu_torch.render import sweep as PS
 
 from torch_sweep_inputs import (
-    CWS, H, ORG_Y, TILES, W, k6_level_cases, seeded_inputs)
+    CWS, H, K3_MIDS_CASES, ORG_Y, TILES, W, k3_mids_inputs, k6_level_cases,
+    seeded_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -197,27 +199,101 @@ def _xf_inputs(s, h, w, seed):
 
 
 @pytest.mark.parametrize("shape", [(5, 21, 200), (12, 40, 512)])
-def test_k3_k4_match_plain_version(cuda, shape):
-    """K3 and K4 (csrc/xf.cu) against composite_chunk_reference /
-    classify_field_reference on the card: every output value within
-    1e-5, launch counts up by one each."""
+def test_k4_matches_plain_version(cuda, shape):
+    """K4 (csrc/xf.cu) against classify_field_reference on the card:
+    every output value within 1e-5, the launch count up by one."""
     from owlexabrick_tpu_torch.render import classify as PC
 
     sw, swv, sec, live, lut = (torch.from_numpy(a).to(cuda)
                                for a in _xf_inputs(*shape, seed=3))
     dom, dz = np.asarray([0.1, 0.9], np.float32), np.float32(0.75)
-    n3, n4 = PC.composite_chunk_cuda.launches, PC.classify_field_cuda.launches
+    n4 = PC.classify_field_cuda.launches
     got4 = PC.classify_field(sw, swv, sec, lut, dom, dz)
-    got3 = PC.composite_chunk(sw, swv, sec, live, lut, dom, dz)
     assert PC.classify_field_cuda.launches == n4 + 1
-    assert PC.composite_chunk_cuda.launches == n3 + 1
     want4 = PC.classify_field(sw, swv, sec, lut, dom, dz, plain=True)
-    want3 = PC.composite_chunk(sw, swv, sec, live, lut, dom, dz, plain=True)
     torch.cuda.synchronize()
-    for g, p in zip(got4 + got3, want4 + want3):
+    for g, p in zip(got4, want4):
         assert g.shape == p.shape and torch.isfinite(g).all()
         assert float((g - p).abs().max()) <= 1e-5
-    assert float(got4[3].max()) > 0.5 and float(got3[1].min()) < 0.5
+    assert float(got4[3].max()) > 0.5
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("case", sorted(K3_MIDS_CASES))
+def test_k3_mids_bit_equal_plain(cuda, case, variant):
+    """K3 from the mids (csrc/xf.cu) against composite_mids_reference on
+    the card, bit for bit: 1, 4 and 8 levels, W = 1000, a 2944 x 1624
+    lattice, an interval every pixel misses and none; one launch per
+    call."""
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    d = k3_mids_inputs(case)
+
+    def dev(v):
+        return None if v is None else torch.from_numpy(v).to(cuda)
+
+    mids = [dev(m) for m in d["mids"]]
+    taps = [dev(tp) for tp in d["taps"]]
+    args = (mids, taps, dev(d["scale"]), dev(d["t_start"]), dev(d["t_stop"]),
+            dev(d["sec"]), dev(d["lut"]), d["dom"], d["dz"])
+    n0 = PC.composite_mids_cuda.launches
+    got = PC.composite_mids_cuda(*args, variant=variant)
+    assert PC.composite_mids_cuda.launches == n0 + 1
+    want = PC.composite_mids(*args, plain=True)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert g.shape == p.shape and torch.isfinite(g).all()
+        assert torch.equal(g, p)
+    assert (case == "all_infinite") == bool((got[1] == 1.0).all())
+
+
+def test_k3_route_on_card_equals_plain(cuda, monkeypatch):
+    """The one-channel clip route on the card (K6, then K3) equals its
+    plain versions on the card bit for bit, with dead slabs (18 slabs in
+    chunks of 4) and the clip box's interval; K3 launches once per chunk
+    with a live slab and K6 once per such chunk with an occupied
+    level."""
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render import classify as PC
+    from owlexabrick_tpu_torch.render import mids as PM
+    from owlexabrick_tpu_torch.render import slabs as P
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.renderer import clip_interval
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    lower, level, scal = volume_to_cells(synthetic_volume(32), 0.004, 3)
+    g = P.level_grids_from_cells(lower, level, scal[None], device=cuda)
+    cam = Camera.look_at([16.0, 16.0, 70.0], [16.0, 16.0, 16.0], [0, 1, 0],
+                         30.0, 200, 120)
+    fs = make_frame_state(cam, 1, [[0.0, 1.05]], dt=1.0, opacity_scale=0.8)
+    t0, t1 = clip_interval(2, cam, None, 200, 120, np.eye(3, 4), cam.pos,
+                           [8.0, 0.0, 0.0], [32.0, 32.0, 25.6], device=cuda)
+    calls = []
+    mids = P._EinsumLane.mids
+
+    def spy(lane, z_s, occ_s, scale):
+        calls.append(sum(bool(o.any()) for o in occ_s))
+        return mids(lane, z_s, occ_s, scale)
+
+    monkeypatch.setattr(P._EinsumLane, "mids", spy)
+    frames = []
+    for plain in (False, True):
+        calls.clear()
+        n3, n6 = (PC.composite_mids_cuda.launches,
+                  PM.xresample_mids_levels_cuda.launches)
+        frames.append(P.render_slabs_camera(
+            g, fs, P.SlabConfig(nslabs=18, chunk=4, plain_sweep=plain), cam,
+            200, 120, t_start=t0, t_stop=t1))
+        k3, k6 = (PC.composite_mids_cuda.launches - n3,
+                  PM.xresample_mids_levels_cuda.launches - n6)
+        want = (0, 0) if plain else (len(calls),
+                                     sum(n > 0 for n in calls))
+        assert (k3, k6) == want
+    torch.cuda.synchronize()
+    assert len(calls) >= 3
+    assert torch.equal(frames[0], frames[1])
+    assert float(frames[0][:, 3].max()) > 0.3
 
 
 @pytest.mark.parametrize("channels,grad", [(1, False), (2, False), (1, True),
@@ -246,7 +322,7 @@ def test_einsum_lane_on_card_matches_cpu(cuda, channels, grad):
                      gradient_shading_dvr=grad)
     box = ([4.0, 0.0, 0.0], [16.0, 16.0, 12.8])
     kernel = PC.classify_field_cuda if channels > 1 or grad else (
-        PC.composite_chunk_cuda)
+        PC.composite_mids_cuda)
     frames = []
     for dev, g in (("cuda", g_gpu), ("cpu", g_cpu)):
         t0, t1 = clip_interval(2, cam, None, 24, 24, np.eye(3, 4), cam.pos,

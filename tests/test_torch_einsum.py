@@ -100,8 +100,8 @@ def test_k3_k4_plain_match_pallas(lut_kind, tol, shape):
                                     jnp.asarray(sec), jnp.asarray(live),
                                     jnp.asarray(lut), dom, dz,
                                     interpret=True)
-    rgb_g, t_g = PC.composite_chunk(t[0], t[1], t[2],
-                                    torch.from_numpy(live), t[3], dom, dz)
+    rgb_g, t_g = PC.composite_chunk_reference(
+        t[0], t[1], t[2], torch.from_numpy(live), t[3], dom, dz)
     assert float(np.abs(rgb_g.numpy() - np.asarray(rgb_r)).max()) <= tol
     assert float(np.abs(t_g.numpy() - np.asarray(t_r)).max()) <= tol
     assert float(t_g.min()) < 0.5
@@ -114,7 +114,9 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         PC.classify_field_cuda(sw, swv, sec, lut, (0.0, 1.0), 1.0)
     with pytest.raises(ValueError):
-        PC.composite_chunk_cuda(sw, swv, sec, live, lut, (0.0, 1.0), 1.0)
+        PC.composite_mids_cuda([swv[None].expand(2, -1, -1, -1)],
+                               [torch.zeros(2, 3, 4)], torch.ones(2), None,
+                               None, sec, lut, (0.0, 1.0), 1.0)
 
 
 # ---------------------------------------------------------------------------

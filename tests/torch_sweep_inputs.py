@@ -109,3 +109,61 @@ def k6_level_cases():
         ragged_w=case(2, 4, 203, [(17, 31), (9, 16)]),
         wide_window=case(2, 3, 260, [(21, 700), (12, 40)]),
     )
+
+
+# K3 (from the mids) cases: (levels' ny, S, H, W, interval)
+K3_MIDS_CASES = {
+    "levels1": ((23,), 5, 30, 64, "mixed"),
+    "levels4": ((37, 19, 10, 5), 6, 40, 96, "mixed"),
+    "levels8": (tuple(40 - 5 * i for i in range(8)), 4, 33, 70, "mixed"),
+    "ragged_w": ((17, 9), 5, 21, 1000, "mixed"),
+    "lattice": ((700, 360, 180), 2, 1624, 2944, "mixed"),
+    "all_infinite": ((19, 10), 4, 24, 48, "infinite"),
+    "no_interval": ((19, 10), 4, 24, 48, None),
+}
+
+
+def k3_mids_inputs(case):
+    """Seeded inputs of K3 from the mids (``composite_mids``) for a case of
+    ``K3_MIDS_CASES``, numpy float32: per level mids (2, S, ny, W) (the
+    value channel, then the mask, 0 on ~20% of samples) and y taps (S, H,
+    4) (w0, w1, r0, r1) of ``tent_taps`` at lattice rows that run past
+    both ends; scale (S,); t_start / t_stop (H, W): "mixed" has finite
+    bounds with 10% of pixels missing the box (+inf / -inf), "infinite"
+    every pixel missing it, None neither; sec (H, W) with grazing rays;
+    a LUT with opacity-1 steps; the domain and dz."""
+    import torch
+
+    from owlexabrick_tpu_torch.render.mids import tent_taps
+
+    nys, s_, h, w, interval = K3_MIDS_CASES[case]
+    rng = np.random.default_rng(sorted(K3_MIDS_CASES).index(case) + 300)
+    mids, taps = [], []
+    for ny in nys:
+        mask = rng.uniform(0.0, 1.0, (s_, ny, w))
+        mask[rng.uniform(size=mask.shape) < 0.2] = 0.0
+        value = rng.uniform(-0.3, 1.3, (s_, ny, w)) * mask
+        mids.append(np.stack([value, mask]).astype(np.float32))
+        qy = (np.linspace(-1.5, ny + 0.5, h)[None, :]
+              * (1.0 + 0.01 * np.arange(s_))[:, None]).astype(np.float32)
+        (i0, i1), (w0, w1), _ = tent_taps(torch.from_numpy(qy), ny)
+        taps.append(torch.stack([w0, w1, i0.float(), i1.float()],
+                                -1).numpy())
+    scale = np.sort(rng.uniform(1.0, 30.0, s_)).astype(np.float32)
+    t_start = t_stop = None
+    if interval == "mixed":
+        t_start = rng.uniform(0.0, 20.0, (h, w)).astype(np.float32)
+        t_stop = (t_start + rng.uniform(3.0, 20.0, (h, w))).astype(
+            np.float32)
+        miss = rng.uniform(size=(h, w)) < 0.1
+        t_start[miss], t_stop[miss] = np.inf, -np.inf
+    elif interval == "infinite":
+        t_start = np.full((h, w), np.inf, np.float32)
+        t_stop = np.full((h, w), -np.inf, np.float32)
+    sec = rng.uniform(1.0, 6.0, (h, w)).astype(np.float32)
+    sec[0, :7] = 900.0
+    lut = rng.uniform(0.0, 1.0, (128, 4)).astype(np.float32)
+    lut[64:80, 3] = 1.0
+    return dict(mids=mids, taps=taps, scale=scale, t_start=t_start,
+                t_stop=t_stop, sec=sec, lut=lut,
+                dom=np.asarray([0.1, 0.9], np.float32), dz=np.float32(0.75))
