@@ -178,8 +178,6 @@ composite_chunk_kernel(const float* __restrict__ sw,
 
 constexpr int kLevels = 8;  // levels per launch (kernels.MAX_LEVELS)
 constexpr int kBlockX = 32, kBlockY = 8;  // columns x rows, 256 threads
-constexpr int kSlabUnroll = 4;  // slabs whose loads start together
-constexpr int kStageRows = 8;   // staged body: lattice rows per level
 
 struct MidsLevel {
   const float* mids;   // (2, S, ny, W)
@@ -225,25 +223,6 @@ __device__ __forceinline__ Pixel pixel_start(const MidsParams& p,
   return q;
 }
 
-// one slab of the pixel: the clip masks on sw (chunk's order: t_stop,
-// then t_start), then today's K3 body
-__device__ __forceinline__ void composite_sample(const MidsParams& p,
-                                                 const float4* s_lut,
-                                                 float scale, float sw,
-                                                 float swv, Pixel& q) {
-  if (p.t_stop && !(scale < q.t_stop)) sw = 0.0f;
-  if (p.t_start && !(scale >= q.t_start)) sw = 0.0f;
-  const bool ok = sw > 1e-20f;
-  const float value = swv / (ok ? sw : 1.0f);
-  const float4 c = classify(s_lut, p.n, value, p.lo, p.hi);
-  const float a = ok ? opacity(c.w, q.e) : 0.0f;
-  const float contrib = q.t * a;
-  q.r = q.r + contrib * c.x;
-  q.g = q.g + contrib * c.y;
-  q.b = q.b + contrib * c.z;
-  q.t = q.t * (1.0f - a);
-}
-
 __device__ __forceinline__ void pixel_store(const MidsParams& p, size_t px,
                                             const Pixel& q) {
   const size_t hw = (size_t)p.H * p.W;
@@ -253,152 +232,187 @@ __device__ __forceinline__ void pixel_store(const MidsParams& p, size_t px,
   p.out[3 * hw + px] = q.t;
 }
 
-// Body A: every mid load from global memory (L1 / L2), kSlabUnroll
-// slabs at a time: per level, the slabs' taps, then all 4 kSlabUnroll
-// mid loads, then their lerps.  Grid (ceil(W / 32), ceil(H / 8)).
+// an invalid sample (sw <= 1e-20 after the masks) has a = 0, so it adds
+// exactly nothing (r + 0 * c = r, T * 1 = T for the LUT's finite c): its
+// classification is skipped
+__device__ __forceinline__ void composite_valid(const MidsParams& p,
+                                                const float4* s_lut,
+                                                float scale, float sw,
+                                                float swv, Pixel& q) {
+  if (p.t_stop && !(scale < q.t_stop)) sw = 0.0f;
+  if (p.t_start && !(scale >= q.t_start)) sw = 0.0f;
+  if (!(sw > 1e-20f)) return;
+  const float value = swv / sw;
+  const float4 c = classify(s_lut, p.n, value, p.lo, p.hi);
+  const float a = opacity(c.w, q.e);
+  const float contrib = q.t * a;
+  q.r = q.r + contrib * c.x;
+  q.g = q.g + contrib * c.y;
+  q.b = q.b + contrib * c.z;
+  q.t = q.t * (1.0f - a);
+}
+
+// Body A1: L levels unrolled at compile time (the table's entries are
+// read as constants), U slabs' taps and then their 4 L U mid loads
+// started together, 32-bit offsets, invalid samples not classified.
+template <int L, int U>
 __global__ void __launch_bounds__(kThreads)
-composite_mids_kernel(const __grid_constant__ MidsParams p) {
+composite_mids_unrolled_kernel(const __grid_constant__ MidsParams p) {
   __shared__ float4 s_lut[kMaxTexels];
   __shared__ float s_scale[kMaxSlabs];
   mids_prologue(p, s_lut, s_scale);
   __syncthreads();
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= p.W || y >= p.H) return;
-  const size_t px = (size_t)y * p.W + x;
+  const int W = p.W, H = p.H, S = p.S;
+  if (x >= W || y >= H) return;
+  const size_t px = (size_t)y * W + x;
   Pixel q = pixel_start(p, px);
-  for (int s0 = 0; s0 < p.S; s0 += kSlabUnroll) {
-    float sw[kSlabUnroll], swv[kSlabUnroll];
+  for (int s0 = 0; s0 < S; s0 += U) {
+    float sw[U], swv[U];
 #pragma unroll
-    for (int k = 0; k < kSlabUnroll; ++k) sw[k] = swv[k] = 0.0f;
-    for (int l = 0; l < p.n_levels; ++l) {
-      const MidsLevel& L = p.lv[l];
-      const size_t plane = (size_t)L.ny * p.W;  // one slab's (ny, W)
-      const size_t comp = plane * p.S;          // one component's
-      float4 tp[kSlabUnroll];
+    for (int k = 0; k < U; ++k) sw[k] = swv[k] = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kSlabUnroll; ++k)
-        tp[k] = __ldg(L.taps + (size_t)min(s0 + k, p.S - 1) * p.H + y);
-      float v0[kSlabUnroll], v1[kSlabUnroll], m0[kSlabUnroll],
-          m1[kSlabUnroll];
+    for (int l = 0; l < L; ++l) {
+      const float* __restrict__ mids = p.lv[l].mids;
+      const int plane = p.lv[l].ny * W;  // one slab's (ny, W)
+      const int comp = plane * S;        // one component's (S, ny, W)
+      float4 tp[U];
 #pragma unroll
-      for (int k = 0; k < kSlabUnroll; ++k) {
-        const float* __restrict__ v =
-            L.mids + (size_t)min(s0 + k, p.S - 1) * plane + x;
-        const size_t o0 = (size_t)(int)tp[k].z * p.W;
-        const size_t o1 = (size_t)(int)tp[k].w * p.W;
-        v0[k] = __ldg(v + o0);
-        v1[k] = __ldg(v + o1);
-        m0[k] = __ldg(v + comp + o0);
-        m1[k] = __ldg(v + comp + o1);
+      for (int k = 0; k < U; ++k)
+        tp[k] = __ldg(p.lv[l].taps + min(s0 + k, S - 1) * H + y);
+      float v0[U], v1[U], m0[U], m1[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const int base = min(s0 + k, S - 1) * plane + x;
+        const int o0 = base + (int)tp[k].z * W;
+        const int o1 = base + (int)tp[k].w * W;
+        v0[k] = __ldg(mids + o0);
+        v1[k] = __ldg(mids + o1);
+        m0[k] = __ldg(mids + comp + o0);
+        m1[k] = __ldg(mids + comp + o1);
       }
 #pragma unroll
-      for (int k = 0; k < kSlabUnroll; ++k) {
+      for (int k = 0; k < U; ++k) {
         swv[k] = swv[k] + (tp[k].x * v0[k] + tp[k].y * v1[k]);
         sw[k] = sw[k] + (tp[k].x * m0[k] + tp[k].y * m1[k]);
       }
     }
 #pragma unroll
-    for (int k = 0; k < kSlabUnroll; ++k)
-      if (s0 + k < p.S)
-        composite_sample(p, s_lut, s_scale[s0 + k], sw[k], swv[k], q);
+    for (int k = 0; k < U; ++k)
+      if (s0 + k < S)
+        composite_valid(p, s_lut, s_scale[s0 + k], sw[k], swv[k], q);
   }
   pixel_store(p, px, q);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-// Body B (staged, to compare): per slab and level, the block's window of
-// up to kStageRows lattice rows x 32 columns x 2 components is copied to
-// shared memory with cp.async, double-buffered one slab ahead; a thread
-// whose rows fall outside its level's window reads them from global
-// memory.  The window starts at the least r0 of the block's first and
-// last rows (the rows are monotone in y).
-struct Stage {
-  float mid[kLevels][2][kStageRows][kBlockX];
-  int row0[kLevels], rows[kLevels];
-};
-
-__device__ __forceinline__ void stage_slab(const MidsParams& p, Stage& st,
-                                           int s, int y0, int y1, int x0,
-                                           int tid) {
-  for (int l = 0; l < p.n_levels; ++l) {
-    const MidsLevel& L = p.lv[l];
-    const float4 a = __ldg(L.taps + (size_t)s * p.H + y0);
-    const float4 b = __ldg(L.taps + (size_t)s * p.H + y1);
-    const int lo = min((int)a.z, (int)b.z);
-    const int rows = min(max((int)a.w, (int)b.w) - lo + 1, kStageRows);
-    if (tid == 0) {
-      st.row0[l] = lo;
-      st.rows[l] = rows;
-    }
-    const size_t plane = (size_t)L.ny * p.W;
-    const float* src = L.mids + (size_t)s * plane + (size_t)lo * p.W + x0;
-    for (int e = tid; e < 2 * kStageRows * kBlockX; e += kThreads) {
-      const int c = e / (kStageRows * kBlockX);
-      const int row = (e / kBlockX) % kStageRows;
-      const int col = e % kBlockX;
-      if (row < rows && x0 + col < p.W)
-        cp_async4(&st.mid[l][c][row][col],
-                  src + c * plane * p.S + (size_t)row * p.W + col);
-    }
+// C adjacent columns of a row: one float2 / float4 load where the row's
+// columns are aligned (W a multiple of C), else one load per column,
+// the columns past W clamped to the last one
+template <int C>
+__device__ __forceinline__ void load_cols(const float* __restrict__ src,
+                                          bool vec, int n_ok, float* out) {
+  if (C == 4 && vec) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else if (C == 2 && vec) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(src));
+    out[0] = v.x;
+    out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = __ldg(src + min(c, n_ok - 1));
   }
 }
 
+// Body A2: C adjacent columns per thread (kBlockX / C threads across a
+// block's 32 columns, kThreads C / kBlockX rows), one slab at a time
+// with the L levels' taps and 4 L vector loads started together; the
+// taps are shared by the thread's C pixels.
+template <int L, int C>
 __global__ void __launch_bounds__(kThreads)
-composite_mids_staged_kernel(const __grid_constant__ MidsParams p) {
+composite_mids_cols_kernel(const __grid_constant__ MidsParams p) {
   __shared__ float4 s_lut[kMaxTexels];
   __shared__ float s_scale[kMaxSlabs];
-  __shared__ Stage s_st[2];
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
   mids_prologue(p, s_lut, s_scale);
-  const int x0 = blockIdx.x * kBlockX, y0 = blockIdx.y * kBlockY;
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  const int y1 = min(y0 + kBlockY, p.H) - 1;
-  const bool active = x < p.W && y < p.H;
-  const size_t px = (size_t)min(y, p.H - 1) * p.W + min(x, p.W - 1);
-  Pixel q = pixel_start(p, px);
-  stage_slab(p, s_st[0], 0, y0, y1, x0, tid);
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int s = 0; s < p.S; ++s) {
-    if (s + 1 < p.S) stage_slab(p, s_st[(s + 1) & 1], s + 1, y0, y1, x0, tid);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-    if (active) {
-      const Stage& st = s_st[s & 1];
-      float sw = 0.0f, swv = 0.0f;
-      for (int l = 0; l < p.n_levels; ++l) {
-        const MidsLevel& L = p.lv[l];
-        const float4 tp = __ldg(L.taps + (size_t)s * p.H + y);
-        const int r0 = (int)tp.z, r1 = (int)tp.w;
-        const int d0 = r0 - st.row0[l], d1 = r1 - st.row0[l];
-        float v0, v1, m0, m1;
-        if (d0 >= 0 && d1 < st.rows[l]) {
-          v0 = st.mid[l][0][d0][threadIdx.x];
-          v1 = st.mid[l][0][d1][threadIdx.x];
-          m0 = st.mid[l][1][d0][threadIdx.x];
-          m1 = st.mid[l][1][d1][threadIdx.x];
-        } else {
-          const size_t plane = (size_t)L.ny * p.W;
-          const float* v = L.mids + (size_t)s * plane + x;
-          v0 = __ldg(v + (size_t)r0 * p.W);
-          v1 = __ldg(v + (size_t)r1 * p.W);
-          m0 = __ldg(v + plane * p.S + (size_t)r0 * p.W);
-          m1 = __ldg(v + plane * p.S + (size_t)r1 * p.W);
-        }
-        swv = swv + (tp.x * v0 + tp.y * v1);
-        sw = sw + (tp.x * m0 + tp.y * m1);
+  __syncthreads();
+  constexpr int TX = kBlockX / C;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int W = p.W, H = p.H, S = p.S;
+  const int x0 = blockIdx.x * kBlockX + tx * C;
+  const int y = blockIdx.y * (kThreads / TX) + ty;
+  if (x0 >= W || y >= H) return;
+  const int n_ok = min(C, W - x0);
+  const bool vec = W % C == 0 && n_ok == C;
+  Pixel q[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    q[c] = pixel_start(p, (size_t)y * W + x0 + min(c, n_ok - 1));
+  for (int s = 0; s < S; ++s) {
+    float sw[C], swv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) sw[c] = swv[c] = 0.0f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float* __restrict__ mids = p.lv[l].mids;
+      const int plane = p.lv[l].ny * W;
+      const int comp = plane * S;
+      const float4 tp = __ldg(p.lv[l].taps + s * H + y);
+      const int o0 = s * plane + (int)tp.z * W + x0;
+      const int o1 = s * plane + (int)tp.w * W + x0;
+      float v0[C], v1[C], m0[C], m1[C];
+      load_cols<C>(mids + o0, vec, n_ok, v0);
+      load_cols<C>(mids + o1, vec, n_ok, v1);
+      load_cols<C>(mids + comp + o0, vec, n_ok, m0);
+      load_cols<C>(mids + comp + o1, vec, n_ok, m1);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        swv[c] = swv[c] + (tp.x * v0[c] + tp.y * v1[c]);
+        sw[c] = sw[c] + (tp.x * m0[c] + tp.y * m1[c]);
       }
-      composite_sample(p, s_lut, s_scale[s], sw, swv, q);
     }
-    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      composite_valid(p, s_lut, s_scale[s], sw[c], swv[c], q[c]);
   }
-  if (active) pixel_store(p, px, q);
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c < n_ok) pixel_store(p, (size_t)y * W + x0 + c, q[c]);
+}
+
+template <int C>
+void launch_cols(const MidsParams& p, cudaStream_t st) {
+  const dim3 grid((unsigned)((p.W + kBlockX - 1) / kBlockX),
+                  (unsigned)((p.H + kThreads * C / kBlockX - 1) /
+                             (kThreads * C / kBlockX)));
+  switch (p.n_levels) {
+#define OWX_K3_CASE(L) \
+  case L: \
+    composite_mids_cols_kernel<L, C><<<grid, kThreads, 0, st>>>(p); \
+    break;
+    OWX_K3_CASE(0) OWX_K3_CASE(1) OWX_K3_CASE(2) OWX_K3_CASE(3)
+    OWX_K3_CASE(4) OWX_K3_CASE(5) OWX_K3_CASE(6) OWX_K3_CASE(7)
+    OWX_K3_CASE(8)
+#undef OWX_K3_CASE
+  }
+}
+
+template <int U>
+void launch_unrolled(const MidsParams& p, dim3 grid, dim3 block,
+                     cudaStream_t st) {
+  switch (p.n_levels) {
+#define OWX_K3_CASE(L) \
+  case L: \
+    composite_mids_unrolled_kernel<L, U><<<grid, block, 0, st>>>(p); \
+    break;
+    OWX_K3_CASE(0) OWX_K3_CASE(1) OWX_K3_CASE(2) OWX_K3_CASE(3)
+    OWX_K3_CASE(4) OWX_K3_CASE(5) OWX_K3_CASE(6) OWX_K3_CASE(7)
+    OWX_K3_CASE(8)
+#undef OWX_K3_CASE
+  }
 }
 
 // K5: grid ceil(count / kThreads); out (4, count): r, g, b, a planes
@@ -490,7 +504,9 @@ extern "C" int owx_xf_classify(const void* u, const void* lut, void* out,
 // levels (0 gives a transparent chunk): per level l, mids[l] (2, S,
 // ny[l], W) and taps[l] (S, H, 4); scale (S,), t_start / t_stop (H, W)
 // or null, sec (H, W), lut (n, 4), out (4, H, W): r, g, b, T, all
-// float32 contiguous.  variant 0: body A, 1: body B.  Returns the
+// float32 contiguous.  variant 0, 1: body A1 with 4, 1 slabs' loads
+// started together; 2, 3: body A2 with 2, 4 columns per thread.  Returns
+// the
 // launch's cudaError_t (0 = launched).
 extern "C" int owx_composite_mids(const void* const* mids,
                                   const void* const* taps, const int* ny,
@@ -503,11 +519,14 @@ extern "C" int owx_composite_mids(const void* const* mids,
   if (n_levels < 0 || n_levels > kLevels || (n_levels && (!mids || !taps ||
       !ny)) || !scale || !sec || !lut || !out || S < 1 || S > kMaxSlabs ||
       H < 1 || W < 1 || n < 2 || n > kMaxTexels || variant < 0 ||
-      variant > 1)
+      variant > 3 || (long long)S * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   MidsParams p = {};
   for (int l = 0; l < n_levels; ++l) {
-    if (!mids[l] || !taps[l] || ny[l] < 1) return (int)cudaErrorInvalidValue;
+    // 32-bit element offsets within a level's mids
+    if (!mids[l] || !taps[l] || ny[l] < 1 ||
+        2LL * S * ny[l] * W > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
     p.lv[l].mids = (const float*)mids[l];
     p.lv[l].taps = (const float4*)taps[l];
     p.lv[l].ny = ny[l];
@@ -530,10 +549,14 @@ extern "C" int owx_composite_mids(const void* const* mids,
                   (unsigned)((H + kBlockY - 1) / kBlockY));
   const dim3 block(kBlockX, kBlockY);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (variant == 0)
-    composite_mids_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    launch_unrolled<4>(p, grid, block, st);
+  else if (variant == 1)
+    launch_unrolled<1>(p, grid, block, st);
+  else if (variant == 2)
+    launch_cols<2>(p, st);
   else
-    composite_mids_staged_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        p);
+    launch_cols<4>(p, st);
   return (int)cudaGetLastError();
 }

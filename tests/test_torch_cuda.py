@@ -218,7 +218,7 @@ def test_k4_matches_plain_version(cuda, shape):
     assert float(got4[3].max()) > 0.5
 
 
-@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
 @pytest.mark.parametrize("case", sorted(K3_MIDS_CASES))
 def test_k3_mids_bit_equal_plain(cuda, case, variant):
     """K3 from the mids (csrc/xf.cu) against composite_mids_reference on
