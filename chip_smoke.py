@@ -49,8 +49,7 @@ surface stop).  Phases, each of which fails the run:
    masks and the composite) bit for bit against
    ``composite_mids_reference`` on a real chunk of ``headline_clip``,
    ``blobs256_clip`` and ``headline_tilted_clip``, timed by CUDA events
-   and graph replay beside the old route on the same chunk (the torch y
-   stage, then the fields' K3) and its second, staged body;
+   and graph replay;
 9. the einsum lane at 1920x1080 (uncached: it has no product cache):
    the clipbox golden's box scaled to n on the headline (aligned,
    ``headline_clip``; through shear-warp, ``headline_tilted_clip``) and
@@ -142,10 +141,6 @@ PORT_KERNELS = {"sweep_kernel": "K1", "warp_pass1_kernel": "K2a",
                 "composite_mids_kernel": "K3",
                 "classify_field_kernel": "K4", "xf_classify_kernel": "K5",
                 "xresample_levels_kernel": "K6"}
-# K3's bodies timed in turns (csrc/xf.cu owx_composite_mids' variant: 0,
-# 1 levels unrolled with 4, 1 slabs' loads started together; 2, 3 two and
-# four columns per thread) and the one the render path launches
-K3_BODIES, K3_BODY = (0, 1, 2, 3), 0
 # the iso rows' iso value as a fraction of the scene's value maximum: the
 # iso golden's 0.55 on its [0, 1.05] TF domain
 ISO_FRAC = 0.524
@@ -893,54 +888,34 @@ def xf_check(name, sw, swv, sec, lut, dom, dz):
 def k3_check(name, args):
     """K3 from the mids against its plain version on one chunk's inputs
     (mids, y taps, scale, t_start, t_stop, sec, LUT, domain, dz), bit for
-    bit; times from CUDA events (``ms_events``) and from CUDA-graph
-    replay (``ms``), the two bodies in turns (A: loads from global
-    memory, B: rows staged by cp.async), beside the old route on the same
-    chunk (the torch y stage and masks, then the fields' K3) and the
-    plain version; the bound of this chunk's work."""
+    bit; times from CUDA-graph replay (``ms``) and CUDA events
+    (``ms_events``), the plain version's time and the bound of this
+    chunk's work."""
     import torch
 
     from owlexabrick_tpu_torch.render import classify as PC
 
     mids, taps, scale, t_start, t_stop, sec, lut, dom, dz = args
 
-    def body(variant):
-        return lambda: PC.composite_mids_cuda(*args, variant=variant)
-
+    def kernel():
+        return PC.composite_mids_cuda(*args)
 
     want = PC.composite_mids_reference(*args)
-    got = {v: body(v)() for v in K3_BODIES}
+    got = kernel()
     torch.cuda.synchronize()
-    err = max(float((g - p).abs().max()) for v in got
-              for g, p in zip(got[v], want))
-    exact = {v: all(torch.equal(g, p) for g, p in zip(got[v], want))
-             for v in got}
-    finite = all(bool(torch.isfinite(t).all()) for t in got[0])
+    err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+    exact = all(torch.equal(g, p) for g, p in zip(got, want))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
     s_ = scale.shape[0]
     h, w = sec.shape
-    sw, swv = PC.mids_fields_reference(mids, taps, scale, t_start, t_stop,
-                                       h, w)
-    live = torch.ones(s_, dtype=torch.float32, device=sec.device)
-
-    def old_route():
-        f = PC.mids_fields_reference(mids, taps, scale, t_start, t_stop, h,
-                                     w)
-        return PC.composite_chunk_cuda(f[0], f[1], sec, live, lut, dom, dz)
-
+    sw = PC.mids_fields_reference(*args[:5], h, w)[0]
     res = dict(name=name, slabs=s_, ny=[int(m.shape[2]) for m in mids],
                H=h, W=w, valid_share=float((sw > 1e-20).float().mean()),
-               max_abs_err=err, bit_equal=all(exact.values()),
-               trans_mean=float(got[0][1].mean()))
-    order = list(K3_BODIES) + list(K3_BODIES)[::-1]
-    turns = [graph_ms(body(v), 50) for v in order]
-    res["bodies_ms"] = {v: (turns[i] + turns[-1 - i]) / 2
-                        for i, v in enumerate(K3_BODIES)}
-    res["ms"] = res["bodies_ms"][K3_BODY]
-    res["ms_events"] = time_ms(body(K3_BODY), 50)
-    res["old_route_ms"] = time_ms(old_route, 10)
-    res["old_k3_ms"] = time_ms(
-        lambda: PC.composite_chunk_cuda(sw, swv, sec, live, lut, dom, dz),
-        50)
+               max_abs_err=err, bit_equal=exact,
+               trans_mean=float(got[1].mean()))
+    del sw
+    res["ms"] = graph_ms(kernel, 50)
+    res["ms_events"] = time_ms(kernel, 50)
     res["plain_ms"] = time_ms(lambda: PC.composite_mids_reference(*args), 3,
                               warmup=1)
     res["library_ms"] = None
@@ -948,12 +923,12 @@ def k3_check(name, args):
     # b, T written once; 3 operations per level and component per sample
     # (the y lerp) and OPS_K3 for the classification and composite
     res["bound_ms"], res["bound_by"] = bound(
-        nbytes(*mids, *taps, scale, t_start, t_stop, sec, lut, *got[0]),
+        nbytes(*mids, *taps, scale, t_start, t_stop, sec, lut, *got),
         (6 * len(mids) + OPS_K3) * s_ * h * w)
     log("k3 check:", json.dumps(res))
-    if not finite or not all(exact.values()):
+    if not finite or not exact:
         raise SystemExit(f"K3 differs from its plain version on {name}: "
-                         f"{err} (finite={finite}, bit-equal {exact})")
+                         f"{err} (finite={finite})")
     return res
 
 

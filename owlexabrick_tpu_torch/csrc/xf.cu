@@ -1,19 +1,23 @@
-// K3, K4 and K5 for Hopper: transfer-function classification of the
-// einsum lane's reconstructed slab fields, and the stand-alone LUT lookup.
+// K3, K4 and K5 for Hopper: transfer-function classification for the
+// einsum lane, and the stand-alone LUT lookup.
 //
 // Replaces the TPU kernels owlexabrick_tpu/render/pallas_xf.py
 // _composite_chunk_kernel (:178, pallas_call :293, K3),
 // _classify_field_kernel (:46, pallas_call :155, K4) and _xf_kernel
 // (:24, pallas_call :329 in xf_classify, K5).  Their plain-torch twins
-// are render/classify.py::composite_chunk_reference,
+// are render/classify.py::composite_mids_reference,
 // classify_field_reference and xf_classify_reference.
 //
+//   K3: the one-channel clip route's chunk from each level's mids: per
+//       pixel and live slab, the y lerp of every level's mids summed in
+//       level order (sw, swv), the clip interval's masks on sw, then
+//       K4's classification and the front-to-back composite over the
+//       slabs; out premultiplied r, g, b and the transmittance T, each
+//       (H, W).  The TPU kernel (and this port until it) read sw, swv
+//       (S, H, W) fields that the y stage had written to memory.
 //   K4: per (slab, pixel): value = swv/sw (invalid where sw <= 1e-20),
 //       texel coordinate, LUT rgba, a = 1-(1-a)^(dz*sec), a = 0 where
 //       invalid; out r, g, b, a planes, each (S, H, W).
-//   K3: the same classification per slab, the live[s] gate, and the
-//       front-to-back composite over the chunk's S slabs; out
-//       premultiplied r, g, b and the transmittance T, each (H, W).
 //   K5: per element of u (R, C), clamped texel coordinates in [0, N-1]:
 //       the LUT's r, g, b, a at u; out four (R, C) planes.  The iso
 //       path's colormap recolor (render_slabs_iso, colormap_channel != 0)
@@ -24,22 +28,20 @@
 // pixel that walk telescopes to lut[k] + (u-k) (lut[k+1]-lut[k]) with
 // k = min(floor(u), N-2), so each thread lerps the LUT held in shared
 // memory (128 x float4, 2 KB) and the tiles, their remainder masks and
-// the walk are gone.  Every sample is classified, invalid ones at
-// value = swv/1, and only alpha is zeroed, so no inf or NaN enters.
+// the walk are gone.  K4 classifies every sample, invalid ones at
+// value = swv/1, and zeroes only alpha, so no inf or NaN enters.
 //
-// What bounds them on this card: bytes.  K4 reads sw and swv and writes
-// four planes, ~24 bytes per (slab, pixel) against ~30 flops; K3 reads
-// 8 bytes per (slab, pixel) and writes 16 per pixel.  Both are far below
-// the ridge of 67 TFLOP/s fp32 over 3.35 TB/s.  The design is one thread
-// per (slab, pixel) for K4 and one per pixel for K3, which loops over
-// the slabs with its r, g, b, T in registers and live[] in shared
-// memory; neighbouring threads take neighbouring pixels, so every read
-// and write is coalesced.  K3 skips a dead slab's reads: a = 0 there,
-// which adds exactly nothing.  K5 (the TPU kernel summed 127 clamp ramps
-// per element) reads 4 bytes and writes 16 per element: its bound is
-// 20 B per element over 3.35 TB/s.  One thread per element lerps the
-// 2 KB LUT in shared memory, as K3/K4 do, with coalesced reads of u and
-// writes of the four planes.
+// What bounds them on this card: by bytes, all three.  K4 reads sw and
+// swv and writes four planes, ~24 bytes per (slab, pixel) against ~30
+// flops; K5 reads 4 bytes and writes 16 per element.  One thread per
+// (slab, pixel) for K4 and per element for K5, neighbouring threads on
+// neighbouring pixels, so every read and write is coalesced.  K3 reads
+// each level's mids, ~2 x 4 bytes per (slab, lattice row, column), and
+// writes 16 bytes per pixel; on the H100 it runs far above that bound
+// (PERF.md section 6): its time goes to the 4 loads per level and sample
+// from L1 and to the classification (three IEEE divisions and a powf
+// per valid sample), which the design below keeps as few and as short
+// as it can.
 //
 // Built with -fmad=false so each multiply and add rounds like the plain
 // torch version's separate ops; the kernels allocate nothing and launch
@@ -125,48 +127,11 @@ classify_field_kernel(const float* __restrict__ sw,
   out[3 * plane + i] = ok ? a : 0.0f;
 }
 
-// K3: grid ceil(H*W / kThreads); out (4, H, W): r, g, b, T
-__global__ void __launch_bounds__(kThreads)
-composite_chunk_kernel(const float* __restrict__ sw,
-                       const float* __restrict__ swv,
-                       const float* __restrict__ sec,
-                       const float* __restrict__ live,
-                       const float* __restrict__ lut,
-                       float* __restrict__ out, XfParams p) {
-  __shared__ float4 s_lut[kMaxTexels];
-  __shared__ float s_live[kMaxSlabs];
-  load_lut(lut, p.n, s_lut);
-  for (int i = threadIdx.x; i < p.S; i += blockDim.x) s_live[i] = live[i];
-  __syncthreads();
-  const long long px = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (px >= p.hw) return;
-  const float e = p.dz * sec[px];
-  float r = 0.0f, g = 0.0f, b = 0.0f, t = 1.0f;
-  for (int s = 0; s < p.S; ++s) {
-    if (!(s_live[s] > 0.0f)) continue;
-    const long long i = (long long)s * p.hw + px;
-    const float w = sw[i];
-    const bool ok = w > 1e-20f;
-    const float value = swv[i] / (ok ? w : 1.0f);
-    const float4 c = classify(s_lut, p.n, value, p.lo, p.hi);
-    const float a = ok ? opacity(c.w, e) : 0.0f;
-    const float contrib = t * a;
-    r = r + contrib * c.x;
-    g = g + contrib * c.y;
-    b = b + contrib * c.z;
-    t = t * (1.0f - a);
-  }
-  out[px] = r;
-  out[p.hw + px] = g;
-  out[2 * p.hw + px] = b;
-  out[3 * p.hw + px] = t;
-}
-
 // ---------------------------------------------------------------------------
 // K3 from the mids: the y stage, the clip masks and the composite of a
-// chunk in one pass, one thread per pixel.
+// chunk in one pass.
 //
-// Per occupied level l (at most kMaxLevels, in level order): mids (2, S,
+// Per occupied level l (at most kLevels, in level order): mids (2, S,
 // ny_l, W), the value channel then the mask, z- and x-lerped (K6), and
 // taps (S, H) float4 (w0, w1, r0, r1): the y tent's weights and rows at
 // every slab and screen row (mids.py::tent_taps, rows stored as floats).
@@ -174,10 +139,12 @@ composite_chunk_kernel(const float* __restrict__ sw,
 //   swv = sum_l (w0 * mid_l[0, s, r0, x] + w1 * mid_l[0, s, r1, x])
 //   sw  = the same over mid_l[1]
 //   sw  = 0 unless scale[s] < t_stop[y, x], then unless >= t_start[y, x]
-// then the classification, opacity and front-to-back composite above.
+// then K4's classification and opacity and the front-to-back composite.
 
 constexpr int kLevels = 8;  // levels per launch (kernels.MAX_LEVELS)
-constexpr int kBlockX = 32, kBlockY = 8;  // columns x rows, 256 threads
+constexpr int kCols = 2;    // adjacent columns per thread (a float2)
+constexpr int kBlockX = 32;  // columns per block
+constexpr int kBlockRows = kThreads * kCols / kBlockX;  // 16
 
 struct MidsLevel {
   const float* mids;   // (2, S, ny, W)
@@ -201,16 +168,6 @@ struct Pixel {
   float e, t_start, t_stop;
   float r, g, b, t;
 };
-
-__device__ __forceinline__ void mids_prologue(const MidsParams& p,
-                                              float4* s_lut,
-                                              float* s_scale) {
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  for (int i = tid; i < p.n; i += kThreads)
-    s_lut[i] = make_float4(p.lut[4 * i], p.lut[4 * i + 1], p.lut[4 * i + 2],
-                           p.lut[4 * i + 3]);
-  for (int i = tid; i < p.S; i += kThreads) s_scale[i] = p.scale[i];
-}
 
 __device__ __forceinline__ Pixel pixel_start(const MidsParams& p,
                                              size_t px) {
@@ -252,167 +209,67 @@ __device__ __forceinline__ void composite_valid(const MidsParams& p,
   q.t = q.t * (1.0f - a);
 }
 
-// Body A1: L levels unrolled at compile time (the table's entries are
-// read as constants), U slabs' taps and then their 4 L U mid loads
-// started together, 32-bit offsets, invalid samples not classified.
-template <int L, int U>
+// a thread's two adjacent columns of a mid row: one float2 load where
+// the row's columns are aligned (W even), else one load per column, a
+// column past W clamped to the last one
+__device__ __forceinline__ float2 load_cols(const float* __restrict__ src,
+                                            bool vec, int n_ok) {
+  if (vec) return __ldg(reinterpret_cast<const float2*>(src));
+  return make_float2(__ldg(src), __ldg(src + min(1, n_ok - 1)));
+}
+
+// K3: kCols adjacent columns per thread, 16 threads across a block's 32
+// columns and 16 rows; one slab at a time, the L levels unrolled at
+// compile time (the level table's entries read as constants), each
+// level's taps and its 4 float2 mid loads started before any lerp.  The
+// taps are shared by the thread's two pixels and, within a warp (2
+// rows), by its 16 threads; a block's rows share a coarse level's mid
+// rows through L1.  Grid (ceil(W / 32), ceil(H / 16)).
+template <int L>
 __global__ void __launch_bounds__(kThreads)
-composite_mids_unrolled_kernel(const __grid_constant__ MidsParams p) {
+composite_mids_kernel(const __grid_constant__ MidsParams p) {
   __shared__ float4 s_lut[kMaxTexels];
   __shared__ float s_scale[kMaxSlabs];
-  mids_prologue(p, s_lut, s_scale);
+  load_lut(p.lut, p.n, s_lut);
+  for (int i = threadIdx.x; i < p.S; i += kThreads) s_scale[i] = p.scale[i];
   __syncthreads();
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  constexpr int kTx = kBlockX / kCols;
   const int W = p.W, H = p.H, S = p.S;
-  if (x >= W || y >= H) return;
-  const size_t px = (size_t)y * W + x;
-  Pixel q = pixel_start(p, px);
-  for (int s0 = 0; s0 < S; s0 += U) {
-    float sw[U], swv[U];
+  const int x0 = blockIdx.x * kBlockX + (threadIdx.x % kTx) * kCols;
+  const int y = blockIdx.y * kBlockRows + threadIdx.x / kTx;
+  if (x0 >= W || y >= H) return;
+  const int n_ok = min(kCols, W - x0);
+  const bool vec = W % kCols == 0 && n_ok == kCols;
+  Pixel q[kCols];
 #pragma unroll
-    for (int k = 0; k < U; ++k) sw[k] = swv[k] = 0.0f;
+  for (int c = 0; c < kCols; ++c)
+    q[c] = pixel_start(p, (size_t)y * W + x0 + min(c, n_ok - 1));
+  for (int s = 0; s < S; ++s) {
+    float sw[kCols] = {}, swv[kCols] = {};
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       const float* __restrict__ mids = p.lv[l].mids;
       const int plane = p.lv[l].ny * W;  // one slab's (ny, W)
       const int comp = plane * S;        // one component's (S, ny, W)
-      float4 tp[U];
-#pragma unroll
-      for (int k = 0; k < U; ++k)
-        tp[k] = __ldg(p.lv[l].taps + min(s0 + k, S - 1) * H + y);
-      float v0[U], v1[U], m0[U], m1[U];
-#pragma unroll
-      for (int k = 0; k < U; ++k) {
-        const int base = min(s0 + k, S - 1) * plane + x;
-        const int o0 = base + (int)tp[k].z * W;
-        const int o1 = base + (int)tp[k].w * W;
-        v0[k] = __ldg(mids + o0);
-        v1[k] = __ldg(mids + o1);
-        m0[k] = __ldg(mids + comp + o0);
-        m1[k] = __ldg(mids + comp + o1);
-      }
-#pragma unroll
-      for (int k = 0; k < U; ++k) {
-        swv[k] = swv[k] + (tp[k].x * v0[k] + tp[k].y * v1[k]);
-        sw[k] = sw[k] + (tp[k].x * m0[k] + tp[k].y * m1[k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < U; ++k)
-      if (s0 + k < S)
-        composite_valid(p, s_lut, s_scale[s0 + k], sw[k], swv[k], q);
-  }
-  pixel_store(p, px, q);
-}
-
-// C adjacent columns of a row: one float2 / float4 load where the row's
-// columns are aligned (W a multiple of C), else one load per column,
-// the columns past W clamped to the last one
-template <int C>
-__device__ __forceinline__ void load_cols(const float* __restrict__ src,
-                                          bool vec, int n_ok, float* out) {
-  if (C == 4 && vec) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  } else if (C == 2 && vec) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(src));
-    out[0] = v.x;
-    out[1] = v.y;
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = __ldg(src + min(c, n_ok - 1));
-  }
-}
-
-// Body A2: C adjacent columns per thread (kBlockX / C threads across a
-// block's 32 columns, kThreads C / kBlockX rows), one slab at a time
-// with the L levels' taps and 4 L vector loads started together; the
-// taps are shared by the thread's C pixels.
-template <int L, int C>
-__global__ void __launch_bounds__(kThreads)
-composite_mids_cols_kernel(const __grid_constant__ MidsParams p) {
-  __shared__ float4 s_lut[kMaxTexels];
-  __shared__ float s_scale[kMaxSlabs];
-  mids_prologue(p, s_lut, s_scale);
-  __syncthreads();
-  constexpr int TX = kBlockX / C;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int W = p.W, H = p.H, S = p.S;
-  const int x0 = blockIdx.x * kBlockX + tx * C;
-  const int y = blockIdx.y * (kThreads / TX) + ty;
-  if (x0 >= W || y >= H) return;
-  const int n_ok = min(C, W - x0);
-  const bool vec = W % C == 0 && n_ok == C;
-  Pixel q[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    q[c] = pixel_start(p, (size_t)y * W + x0 + min(c, n_ok - 1));
-  for (int s = 0; s < S; ++s) {
-    float sw[C], swv[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) sw[c] = swv[c] = 0.0f;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float* __restrict__ mids = p.lv[l].mids;
-      const int plane = p.lv[l].ny * W;
-      const int comp = plane * S;
       const float4 tp = __ldg(p.lv[l].taps + s * H + y);
       const int o0 = s * plane + (int)tp.z * W + x0;
       const int o1 = s * plane + (int)tp.w * W + x0;
-      float v0[C], v1[C], m0[C], m1[C];
-      load_cols<C>(mids + o0, vec, n_ok, v0);
-      load_cols<C>(mids + o1, vec, n_ok, v1);
-      load_cols<C>(mids + comp + o0, vec, n_ok, m0);
-      load_cols<C>(mids + comp + o1, vec, n_ok, m1);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        swv[c] = swv[c] + (tp.x * v0[c] + tp.y * v1[c]);
-        sw[c] = sw[c] + (tp.x * m0[c] + tp.y * m1[c]);
-      }
+      const float2 v0 = load_cols(mids + o0, vec, n_ok);
+      const float2 v1 = load_cols(mids + o1, vec, n_ok);
+      const float2 m0 = load_cols(mids + comp + o0, vec, n_ok);
+      const float2 m1 = load_cols(mids + comp + o1, vec, n_ok);
+      swv[0] = swv[0] + (tp.x * v0.x + tp.y * v1.x);
+      swv[1] = swv[1] + (tp.x * v0.y + tp.y * v1.y);
+      sw[0] = sw[0] + (tp.x * m0.x + tp.y * m1.x);
+      sw[1] = sw[1] + (tp.x * m0.y + tp.y * m1.y);
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c)
+    for (int c = 0; c < kCols; ++c)
       composite_valid(p, s_lut, s_scale[s], sw[c], swv[c], q[c]);
   }
 #pragma unroll
-  for (int c = 0; c < C; ++c)
+  for (int c = 0; c < kCols; ++c)
     if (c < n_ok) pixel_store(p, (size_t)y * W + x0 + c, q[c]);
-}
-
-template <int C>
-void launch_cols(const MidsParams& p, cudaStream_t st) {
-  const dim3 grid((unsigned)((p.W + kBlockX - 1) / kBlockX),
-                  (unsigned)((p.H + kThreads * C / kBlockX - 1) /
-                             (kThreads * C / kBlockX)));
-  switch (p.n_levels) {
-#define OWX_K3_CASE(L) \
-  case L: \
-    composite_mids_cols_kernel<L, C><<<grid, kThreads, 0, st>>>(p); \
-    break;
-    OWX_K3_CASE(0) OWX_K3_CASE(1) OWX_K3_CASE(2) OWX_K3_CASE(3)
-    OWX_K3_CASE(4) OWX_K3_CASE(5) OWX_K3_CASE(6) OWX_K3_CASE(7)
-    OWX_K3_CASE(8)
-#undef OWX_K3_CASE
-  }
-}
-
-template <int U>
-void launch_unrolled(const MidsParams& p, dim3 grid, dim3 block,
-                     cudaStream_t st) {
-  switch (p.n_levels) {
-#define OWX_K3_CASE(L) \
-  case L: \
-    composite_mids_unrolled_kernel<L, U><<<grid, block, 0, st>>>(p); \
-    break;
-    OWX_K3_CASE(0) OWX_K3_CASE(1) OWX_K3_CASE(2) OWX_K3_CASE(3)
-    OWX_K3_CASE(4) OWX_K3_CASE(5) OWX_K3_CASE(6) OWX_K3_CASE(7)
-    OWX_K3_CASE(8)
-#undef OWX_K3_CASE
-  }
 }
 
 // K5: grid ceil(count / kThreads); out (4, count): r, g, b, a planes
@@ -469,24 +326,6 @@ extern "C" int owx_classify_field(const void* sw, const void* swv,
   return (int)cudaGetLastError();
 }
 
-// K3: sw, swv (S, H, W), sec (H, W), live (S,) 0/1, lut (n, 4), out
-// (4, H, W), all float32 contiguous.  Returns the launch's cudaError_t.
-extern "C" int owx_composite_chunk(const void* sw, const void* swv,
-                                   const void* sec, const void* live,
-                                   const void* lut, void* out, int S,
-                                   int H, int W, int n, float lo, float hi,
-                                   float dz, void* stream) {
-  XfParams p;
-  if (!sw || !swv || !sec || !live || !lut || !out || S > kMaxSlabs ||
-      !make_params(S, H, W, n, lo, hi, dz, &p))
-    return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((p.hw + kThreads - 1) / kThreads);
-  composite_chunk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)sw, (const float*)swv, (const float*)sec,
-      (const float*)live, (const float*)lut, (float*)out, p);
-  return (int)cudaGetLastError();
-}
-
 // K5: u (count,) clamped texel coordinates in [0, n-1], lut (n, 4), out
 // (4, count), all float32 contiguous.  Returns the launch's cudaError_t.
 extern "C" int owx_xf_classify(const void* u, const void* lut, void* out,
@@ -504,22 +343,20 @@ extern "C" int owx_xf_classify(const void* u, const void* lut, void* out,
 // levels (0 gives a transparent chunk): per level l, mids[l] (2, S,
 // ny[l], W) and taps[l] (S, H, 4); scale (S,), t_start / t_stop (H, W)
 // or null, sec (H, W), lut (n, 4), out (4, H, W): r, g, b, T, all
-// float32 contiguous.  variant 0, 1: body A1 with 4, 1 slabs' loads
-// started together; 2, 3: body A2 with 2, 4 columns per thread.  Returns
-// the
-// launch's cudaError_t (0 = launched).
+// float32 contiguous.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int owx_composite_mids(const void* const* mids,
                                   const void* const* taps, const int* ny,
                                   int n_levels, const void* scale,
                                   const void* t_start, const void* t_stop,
                                   const void* sec, const void* lut,
                                   void* out, int S, int H, int W, int n,
-                                  float lo, float hi, float dz, int variant,
+                                  float lo, float hi, float dz,
                                   void* stream) {
   if (n_levels < 0 || n_levels > kLevels || (n_levels && (!mids || !taps ||
       !ny)) || !scale || !sec || !lut || !out || S < 1 || S > kMaxSlabs ||
-      H < 1 || W < 1 || n < 2 || n > kMaxTexels || variant < 0 ||
-      variant > 3 || (long long)S * H > 0x7fffffffLL)
+      H < 1 || W < 1 || n < 2 || n > kMaxTexels ||
+      (long long)S * H > 0x7fffffffLL ||
+      (H + kBlockRows - 1) / kBlockRows > 65535)
     return (int)cudaErrorInvalidValue;
   MidsParams p = {};
   for (int l = 0; l < n_levels; ++l) {
@@ -546,17 +383,17 @@ extern "C" int owx_composite_mids(const void* const* mids,
   p.hi = hi;
   p.dz = dz;
   const dim3 grid((unsigned)((W + kBlockX - 1) / kBlockX),
-                  (unsigned)((H + kBlockY - 1) / kBlockY));
-  const dim3 block(kBlockX, kBlockY);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+                  (unsigned)((H + kBlockRows - 1) / kBlockRows));
   const cudaStream_t st = (cudaStream_t)stream;
-  if (variant == 0)
-    launch_unrolled<4>(p, grid, block, st);
-  else if (variant == 1)
-    launch_unrolled<1>(p, grid, block, st);
-  else if (variant == 2)
-    launch_cols<2>(p, st);
-  else
-    launch_cols<4>(p, st);
+  switch (n_levels) {
+#define OWX_K3_CASE(L) \
+  case L: \
+    composite_mids_kernel<L><<<grid, kThreads, 0, st>>>(p); \
+    break;
+    OWX_K3_CASE(0) OWX_K3_CASE(1) OWX_K3_CASE(2) OWX_K3_CASE(3)
+    OWX_K3_CASE(4) OWX_K3_CASE(5) OWX_K3_CASE(6) OWX_K3_CASE(7)
+    OWX_K3_CASE(8)
+#undef OWX_K3_CASE
+  }
   return (int)cudaGetLastError();
 }

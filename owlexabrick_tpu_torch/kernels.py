@@ -136,12 +136,9 @@ def load():
         lib.owx_classify_field.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                            ci, cf, cf, cf, vp]
         lib.owx_classify_field.restype = ci
-        lib.owx_composite_chunk.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                            ci, ci, cf, cf, cf, vp]
-        lib.owx_composite_chunk.restype = ci
         lib.owx_composite_mids.argtypes = [pv, pv, pi, ci, vp, vp, vp, vp,
                                            vp, vp, ci, ci, ci, ci, cf, cf,
-                                           cf, ci, vp]
+                                           cf, vp]
         lib.owx_composite_mids.restype = ci
         lib.owx_xf_classify.argtypes = [vp, vp, vp, ll, ci, vp]
         lib.owx_xf_classify.restype = ci

@@ -2,13 +2,16 @@
 ``owlexabrick_tpu/render/pallas_xf.py``): the einsum lane's two kernels
 and the stand-alone LUT lookup.
 
-* K3, ``composite_chunk``: value = swv/sw, classification, opacity
-  correction, the ``live`` gate and the front-to-back composite over a
-  chunk's S slabs, into premultiplied chunk rgb (3, H, W) and
-  transmittance (H, W).  The one-channel lane without shading.
-* K4, ``classify_field``: the same classification and opacity per
-  (slab, pixel), no composite: r, g, b, a, each (S, H, W), a = 0 where
-  the sample is invalid.  The multi-channel and gradient-shading lanes.
+* K3, ``composite_mids``: the one-channel clip route's chunk from each
+  occupied level's mids (2, S, ny, W) and y taps: the y lerp summed over
+  levels into sw, swv, the clip interval's masks, value = swv/sw,
+  classification, opacity correction and the front-to-back composite
+  over the chunk's live slabs, into premultiplied chunk rgb (3, H, W)
+  and transmittance (H, W); no (S, H, W) field is built.
+* K4, ``classify_field``: the classification and opacity per (slab,
+  pixel) of the fields, no composite: r, g, b, a, each (S, H, W), a = 0
+  where the sample is invalid.  The multi-channel and gradient-shading
+  lanes.
 * K5, ``xf_classify``: the LUT's r, g, b, a at clamped texel
   coordinates u (R, C).  The iso path's colormap recolor.
 
@@ -17,7 +20,9 @@ hand-written Hopper kernel in ``csrc/xf.cu`` (``*_cuda``, counting its
 launches in ``.launches``) and a dispatcher: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise, and ``plain=True``
 (``SlabConfig.plain_sweep``) is the one explicit way to run the plain
-version on the card.
+version on the card.  ``composite_chunk_reference``, K3's composite
+over (S, H, W) fields, is the JAX package's ``composite_chunk`` in
+torch; K3's plain version ends in it.
 
 The TPU kernels walked the knots between a tile's least and greatest
 texel coordinate (K5: all N-1 of them); for one pixel that walk
@@ -91,8 +96,9 @@ def classify_field_reference(sw, swv, sec, lut, domain, dz):
 
 
 def composite_chunk_reference(sw, swv, sec, live, lut, domain, dz):
-    """Plain-torch K3: the same arithmetic as ``csrc/xf.cu``'s
-    composite_chunk_kernel, one slab at a time.  sw, swv: (S, H, W);
+    """The classification, the ``live`` gate and the front-to-back
+    composite of a chunk's fields, one slab at a time, in the float32
+    operation order of ``csrc/xf.cu``'s K3.  sw, swv: (S, H, W);
     sec: (H, W); live: (S,) bool or 0/1; lut, domain, dz as in
     ``classify_field_reference``.  Returns (rgb (3, H, W) premultiplied
     chunk color, trans (H, W) chunk transmittance); merge into the frame
@@ -106,7 +112,7 @@ def composite_chunk_reference(sw, swv, sec, live, lut, domain, dz):
     b_acc = torch.zeros_like(sec)
     t_run = torch.ones_like(sec)
     for s in range(sw.shape[0]):
-        # a dead slab adds exactly nothing (a = 0), as the kernel skips it
+        # a dead slab adds exactly nothing (a = 0)
         if not live_h[s] > 0.0:
             continue
         valid = sw[s] > 1e-20
@@ -170,12 +176,11 @@ def composite_mids_reference(mids, ytaps, scale, t_start, t_stop, sec, lut,
 
 
 def composite_mids_cuda(mids, ytaps, scale, t_start, t_stop, sec, lut,
-                        domain, dz, variant: int = 0):
+                        domain, dz):
     """Launch K3 (``csrc/xf.cu``) on the current stream: one launch for
     up to ``kernels.MAX_LEVELS`` levels (none gives a transparent chunk).
-    Same arguments and result as ``composite_mids_reference``; ``variant``
-    1 runs the staged body.  Raises on any input the kernel does not
-    take; never falls back."""
+    Same arguments and result as ``composite_mids_reference``.  Raises on
+    any input the kernel does not take; never falls back."""
     from .. import kernels
 
     dev = sec.device
@@ -217,7 +222,7 @@ def composite_mids_cuda(mids, ytaps, scale, t_start, t_stop, sec, lut,
                    (vp * nl)(*[tp.data_ptr() for tp in ytaps]),
                    (ci * nl)(*[m.shape[2] for m in mids]), nl, ptr(scale),
                    ptr(t_start), ptr(t_stop), ptr(sec), ptr(lut), ptr(out),
-                   s_, h, w, n, cf(lo), cf(hi), cf(np.float32(dz)), variant,
+                   s_, h, w, n, cf(lo), cf(hi), cf(np.float32(dz)),
                    kernels.stream_arg(dev))
     composite_mids_cuda.launches += 1
     return out[:3], out[3]
@@ -236,33 +241,25 @@ def composite_mids(mids, ytaps, scale, t_start, t_stop, sec, lut, domain,
     return fn(mids, ytaps, scale, t_start, t_stop, sec, lut, domain, dz)
 
 
-def _common(fn, sw, swv, sec, lut):
-    """Checks shared by both launchers; returns (S, H, W, N)."""
-    from .. import kernels
-
-    dev = sw.device
-    if dev.type != "cuda":
-        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
-    if sw.dim() != 3:
-        raise ValueError(f"sw: need (S, H, W), got {tuple(sw.shape)}")
-    s_, h, w = sw.shape
-    n = int(lut.shape[0])
-    if not 2 <= n <= kernels.MAX_TEXELS:
-        raise ValueError(f"{n} LUT texels; {fn} takes 2..{kernels.MAX_TEXELS}")
-    kernels.check_tensor("sw", sw, dev, (s_, h, w))
-    kernels.check_tensor("swv", swv, dev, (s_, h, w))
-    kernels.check_tensor("sec", sec, dev, (h, w))
-    kernels.check_tensor("lut", lut, dev, (n, 4))
-    return s_, h, w, n
-
-
 def classify_field_cuda(sw, swv, sec, lut, domain, dz):
     """Launch K4 (``csrc/xf.cu``) on the current stream.  Same arguments
     and result as ``classify_field_reference``.  Raises on any input the
     kernel does not take; never falls back."""
     from .. import kernels
 
-    s_, h, w, n = _common("classify_field_cuda", sw, swv, sec, lut)
+    dev = sw.device
+    if dev.type != "cuda":
+        raise ValueError(f"classify_field_cuda needs CUDA tensors, got {dev}")
+    if sw.dim() != 3:
+        raise ValueError(f"sw: need (S, H, W), got {tuple(sw.shape)}")
+    s_, h, w = sw.shape
+    n = int(lut.shape[0])
+    if not 2 <= n <= kernels.MAX_TEXELS:
+        raise ValueError(f"{n} LUT texels; K4 takes 2..{kernels.MAX_TEXELS}")
+    kernels.check_tensor("sw", sw, dev, (s_, h, w))
+    kernels.check_tensor("swv", swv, dev, (s_, h, w))
+    kernels.check_tensor("sec", sec, dev, (h, w))
+    kernels.check_tensor("lut", lut, dev, (n, 4))
     if s_ > 65535:
         raise ValueError(f"{s_} slabs; K4 takes at most 65535")
     lo, hi = _domain(domain)
@@ -280,32 +277,6 @@ def classify_field_cuda(sw, swv, sec, lut, domain, dz):
 classify_field_cuda.launches = 0
 
 
-def composite_chunk_cuda(sw, swv, sec, live, lut, domain, dz):
-    """Launch K3 (``csrc/xf.cu``) on the current stream.  Same arguments
-    and result as ``composite_chunk_reference``.  Raises on any input the
-    kernel does not take; never falls back."""
-    from .. import kernels
-
-    s_, h, w, n = _common("composite_chunk_cuda", sw, swv, sec, lut)
-    if not 1 <= s_ <= kernels.MAX_SLABS:
-        raise ValueError(f"{s_} slabs; K3 takes 1..{kernels.MAX_SLABS}")
-    live_f = live.to(device=sw.device, dtype=torch.float32).contiguous()
-    kernels.check_tensor("live", live_f, sw.device, (s_,))
-    lo, hi = _domain(domain)
-    out = torch.empty((4, h, w), dtype=torch.float32, device=sw.device)
-    vp, cf = ctypes.c_void_p, ctypes.c_float
-    kernels.launch("owx_composite_chunk", "K3", vp(sw.data_ptr()),
-                   vp(swv.data_ptr()), vp(sec.data_ptr()),
-                   vp(live_f.data_ptr()), vp(lut.data_ptr()),
-                   vp(out.data_ptr()), s_, h, w, n, cf(lo), cf(hi),
-                   cf(np.float32(dz)), kernels.stream_arg(sw.device))
-    composite_chunk_cuda.launches += 1
-    return out[:3], out[3]
-
-
-composite_chunk_cuda.launches = 0
-
-
 def classify_field(sw, swv, sec, lut, domain, dz, plain: bool = False):
     """K4 for CUDA tensors, the plain version for CPU tensors (or
     anywhere when ``plain``, the explicit choice a kernel-vs-plain
@@ -313,15 +284,6 @@ def classify_field(sw, swv, sec, lut, domain, dz, plain: bool = False):
     fn = (classify_field_reference if plain or sw.device.type == "cpu"
           else classify_field_cuda)
     return fn(sw, swv, sec, lut, domain, dz)
-
-
-def composite_chunk(sw, swv, sec, live, lut, domain, dz,
-                    plain: bool = False):
-    """K3 for CUDA tensors, the plain version for CPU tensors (or
-    anywhere when ``plain``)."""
-    fn = (composite_chunk_reference if plain or sw.device.type == "cpu"
-          else composite_chunk_cuda)
-    return fn(sw, swv, sec, live, lut, domain, dz)
 
 
 def xf_classify_reference(u: torch.Tensor, lut: torch.Tensor):

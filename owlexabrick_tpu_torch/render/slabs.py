@@ -1018,8 +1018,9 @@ class _EinsumLane:
         if cfg.num_channels == 1 and not cfg.gradient_shading_dvr:
             # K3 from the mids of the live slabs: no (S, H, W) field
             keep = live.nonzero().squeeze(1)
-            mids, taps = self.mids(z_s[keep], occ_s, scale[keep])
-            return composite_mids(mids, taps, scale[keep].to(dev),
+            scale_k = scale[keep]
+            mids, taps = self.mids(z_s[keep], occ_s, scale_k)
+            return composite_mids(mids, taps, scale_k.to(dev),
                                   self.t_start, self.t_stop, self.sec,
                                   self.luts[0], self.domains[0], self.dz,
                                   plain=plain)

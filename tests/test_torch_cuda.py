@@ -1,9 +1,8 @@
 """PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
 surface stop), K2a/K2b (csrc/warp.cu), K3 (from the mids), K4, K5
-(csrc/xf.cu) and K6
-(csrc/mids.cu) against their plain-torch versions, and the port's main
-path, einsum lane and iso path on CUDA against the same paths on the
-CPU.  Marked ``cuda``; each test skips where no card
+(csrc/xf.cu) and K6 (csrc/mids.cu) against their plain-torch versions,
+and the port's main path, einsum lane and iso path on CUDA against the
+same paths on the CPU.  Marked ``cuda``; each test skips where no card
 is present (the check runs inside the fixture, never at import).
 Imports no jax, so it also runs where only torch is installed; there,
 skip the suite's conftest, which sets up jax:
@@ -218,9 +217,8 @@ def test_k4_matches_plain_version(cuda, shape):
     assert float(got4[3].max()) > 0.5
 
 
-@pytest.mark.parametrize("variant", [0, 1, 2, 3])
 @pytest.mark.parametrize("case", sorted(K3_MIDS_CASES))
-def test_k3_mids_bit_equal_plain(cuda, case, variant):
+def test_k3_mids_bit_equal_plain(cuda, case):
     """K3 from the mids (csrc/xf.cu) against composite_mids_reference on
     the card, bit for bit: 1, 4 and 8 levels, W = 1000, a 2944 x 1624
     lattice, an interval every pixel misses and none; one launch per
@@ -237,7 +235,7 @@ def test_k3_mids_bit_equal_plain(cuda, case, variant):
     args = (mids, taps, dev(d["scale"]), dev(d["t_start"]), dev(d["t_stop"]),
             dev(d["sec"]), dev(d["lut"]), d["dom"], d["dz"])
     n0 = PC.composite_mids_cuda.launches
-    got = PC.composite_mids_cuda(*args, variant=variant)
+    got = PC.composite_mids(*args)
     assert PC.composite_mids_cuda.launches == n0 + 1
     want = PC.composite_mids(*args, plain=True)
     torch.cuda.synchronize()
