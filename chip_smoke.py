@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``owlexabrick_tpu_torch/csrc`` and
-drives the port's four paths on the card: the axis-aligned slab-sweep
+drives the port's five paths on the card: the axis-aligned slab-sweep
 DVR (camera products whose x stage is K6, then the sweep K1), the
 shear-warp tilted-camera path (an axis-aligned lattice camera swept by
 K6 + K1, then the two-pass warp K2a + K2b), the sweep's einsum lane (the
 clip box: each level's mids by K6, then K3; DVR gradient shading and
 multi-channel clip: fields rebuilt per slab, then K4) and the iso-surface path (the iso sweep, its
 colormap recolor through K5, the volume stopped at the hits by K1's
-surface stop).  Phases, each of which fails the run:
+surface stop) and the surface path (meshes, streamline segments and the
+lattice AO through the ``Renderer``: the traces and the AO estimator are
+torch ops, their depth K1's surface stop).  Phases, each of which fails
+the run:
 
 1. device: the card's name and power limit, and the kernel build
    (``nvcc -Xptxas -v``'s report; K1's registers and spills per channel
@@ -29,9 +32,9 @@ surface stop).  Phases, each of which fails the run:
 3. K2a + K2b (``csrc/warp.cu``) against ``warp_pass1_reference`` /
    ``warp_pass2_reference`` on the headline's tilted lattice image at
    1080p, as rgba (C = 4) and as the Renderer's color (C = 3);
-4. the ``fast_aligned``, ``fast_stride`` and ``fast_shearwarp`` golden
-   images through the port's ``Renderer`` on the card, under the golden
-   gate;
+4. the ``fast_aligned``, ``fast_stride``, ``fast_shearwarp`` and
+   ``ao_sweep`` golden images through the port's ``Renderer`` on the
+   card, under the golden gate;
 5. the aligned path at 1920x1080 through ``render_slabs_camera`` on the
    bench's scenes, camera and config (``headline``: 64^3 blobs, 72
    slabs; ``blobs256``: 256^3 blobs, 264 slabs, chunk 24, budget 16),
@@ -72,14 +75,26 @@ surface stop).  Phases, each of which fails the run:
     (uncached and cached), ``headline_tilted_iso`` (shear-warp) and
     ``headline_2ch_iso_colormap`` (K5), then progressive ``Renderer``
     frames with the iso surface, aligned and tilted, and every iso row's
-    kernel frame against its plain frame.
+    kernel frame against its plain frame;
+13. the surface path at 1920x1080 through the ``Renderer``
+    (``surface_setups``): a 10,224-triangle bumpy sphere in the 64^3
+    volume, aligned (``headline_mesh``) and through shear-warp
+    (``headline_tilted_mesh``), 4,096 streamline segments over the
+    256^3 volume with the last quarter hidden (``blobs256_streamlines``),
+    the iso rows' iso with the lattice AO (``headline_iso_ao``,
+    ``blobs256_iso_ao``) and the mesh with both (``headline_mesh_iso_ao``):
+    uncached and cached frames, launches, the tiled traces' calls and
+    peak memory; then per row one profiled frame (device ms, busy
+    share), K1 against its plain twin on a real chunk under the row's
+    surface stop, and the row's frame 0 against its plain frame
+    (``Renderer.plain_kernels``).
 
 Launch counts are set to 0 just before each path (aligned, tilted,
-einsum lane, iso) and read just after; a kernel of a path that launched
-no time there fails the run, and so does an uncached megakernel frame
-whose K6 launches are not one per 8 levels of every chunk it swept, and
-a one-channel clip frame that does not launch K3 once per live chunk and
-K6 once per 8 occupied levels of each.
+einsum lane, iso, surfaces) and read just after; a kernel of a path
+that launched no time there fails the run, and so does an uncached
+megakernel frame whose K6 launches are not one per 8 levels of every
+chunk it swept, and a one-channel clip frame that does not launch K3
+once per live chunk and K6 once per 8 occupied levels of each.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s (the H100 SXM's published peaks), counted from this
@@ -93,7 +108,7 @@ megakernel rows (``phase_profile``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card, and the one before that lists each
-kernel with its launches on the four paths, its error against its plain
+kernel with its launches on the five paths, its error against its plain
 version, its time, its plain version's time, its bound and, for K5 and
 K6, the library call's time.
 Exits non-zero without a CUDA card or without the port's sources.
@@ -152,6 +167,12 @@ CLIP_LO, CLIP_HI = (0.25, 0.0, 0.0), (1.0, 1.0, 0.8)
 # too; tests/test_torch_host.py pins these to jax.random
 GOLDEN_JITTER = {0: (0.11854469776153564, -0.06521260738372803),
                  1: (0.016130805015563965, 0.13509845733642578)}
+# the surface rows: the bumpy sphere's radius and the helices' tube
+# radius as fractions of the scene's edge n (the tracer_segments golden's
+# 1.2 at n = 32 is 0.0375 n), the helices' segment count, and the chunk
+# whose K1 is held to its plain twin under the row's surface stop
+MESH_RADIUS, STREAM_RADIUS, STREAM_SEGMENTS = 0.3, 0.0375, 64
+SURF_K1_CHUNK = 2
 # kernel vs plain: within TOL_PX on FRAC_PX of pixels, TOL_ALL on all
 # (the 2e-2 admits saturation-collapse flips at alpha ~ 0.98)
 TOL_PX, FRAC_PX, TOL_ALL = 1e-4, 0.999, 2e-2
@@ -587,10 +608,12 @@ def phase_k2(tilted, width, height, device):
 
 
 def phase_goldens(device):
-    """Phase 4: the fast_aligned / fast_stride / fast_shearwarp goldens
-    on the card (tests/test_golden_images.py's scene and cameras), with
-    the Renderer's default jitter (the JAX Renderer's, checked against
-    ``GOLDEN_JITTER`` first)."""
+    """Phase 4: the fast_aligned / fast_stride / fast_shearwarp /
+    ao_sweep goldens on the card (tests/test_golden_images.py's scene,
+    cameras and recipes), with the Renderer's default jitter (the JAX
+    Renderer's, checked against ``GOLDEN_JITTER`` first)."""
+    import dataclasses
+
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
     from owlexabrick_tpu_torch.render.camera import Camera
     from owlexabrick_tpu_torch.render.frame import make_frame_state
@@ -605,22 +628,31 @@ def phase_goldens(device):
                              f"not the JAX Renderer's {want}")
     w, h, n = 96, 64, 32
     lower, level, scal = volume_to_cells(synthetic_volume(n), 0.004, 3)
-    for name, stride, tilted in (("fast_aligned", False, False),
-                                 ("fast_stride", True, False),
-                                 ("fast_shearwarp", False, True)):
+    for name, stride, tilted, ao in (("fast_aligned", False, False, False),
+                                     ("fast_stride", True, False, False),
+                                     ("fast_shearwarp", False, True, False),
+                                     ("ao_sweep", False, False, True)):
         eye = ([n * 0.9, n * 0.8, n * 2.1] if tilted
                else [n / 2, n / 2, n * 2.1])
         cam = Camera.look_at(eye, [n / 2, n / 2, n / 2], [0, 1, 0], 45.0,
                              w, h)
         fs = make_frame_state(cam, 1, [[0.0, 1.05]], dt=1.0,
                               opacity_scale=0.7)
-        r = Renderer((lower, level, scal[None]), w, h,
-                     cfg=RenderConfig(num_channels=1, adaptive_stride=stride),
+        cfg = RenderConfig(num_channels=1, adaptive_stride=stride)
+        if ao:
+            # the iso surface shaded with the lattice AO, 6 frames
+            fs = dataclasses.replace(
+                fs, iso_enabled=np.asarray([True, False]),
+                iso_value=np.asarray([0.55, 0.0], np.float32),
+                ao_enabled=np.bool_(True), ao_length=np.float32(n * 0.5))
+            cfg = RenderConfig(num_channels=1, iso_surfaces=True,
+                               ao_samples=2)
+        r = Renderer((lower, level, scal[None]), w, h, cfg=cfg,
                      frame_state=fs, device=device)
         r.enable_fast_path()
         if (r._fast[2] == "shearwarp") != tilted:
             raise SystemExit(f"golden {name}: Renderer took {r._fast[2]!r}")
-        img = r.image_uint8(r.render_frames(2))
+        img = r.image_uint8(r.render_frames(6 if ao else 2))
         want = read_png(str(REPO / "tests" / "golden" / f"{name}.png"))
         ok, mx, exact = golden_gate(img, want)
         log(f"golden {name}: max_diff={mx} exact={exact:.4f} "
@@ -1505,6 +1537,346 @@ def phase_k6(setups, width, height, device):
     return k6
 
 
+def surface_setups(setups, tilted, device, width, height, sizes=(64, 256)):
+    """The surface and AO rows at ``width`` x ``height`` (1920x1080) on
+    the bench scenes (edges ``sizes``: the headline's, blobs256's), each a
+    port ``Renderer`` (the user's entry point) with the row's camera,
+    frame state, config and surfaces, its fast path enabled:
+
+    - ``headline_mesh``: a bumpy sphere of 10,224 triangles
+      (``bench_scene.bumpy_sphere``, radius MESH_RADIUS n) at the 64^3
+      volume's center: the tiled triangle trace, its depth K1's stop;
+    - ``headline_tilted_mesh``: the same through shear-warp (the trace
+      on the 2944x1624 lattice rays, then K2a + K2b);
+    - ``blobs256_streamlines``: 64 helices of 64 segments
+      (``bench_scene.helix_bundle``, radius STREAM_RADIUS n) over the
+      256^3 volume, ``tracer_timestep`` hiding each helix's last
+      quarter: the tiled streamline trace;
+    - ``headline_iso_ao``, ``blobs256_iso_ao``: the iso rows' iso value,
+      shaded, AO with 2 samples of a 4-direction pool and ao_length 0.5
+      n (the ao_sweep golden's recipe at scale: ``ao_fast``);
+    - ``headline_mesh_iso_ao``: the mesh, that iso and AO
+      (``ao_combined``: the lattice shadow OR the traced mesh).
+
+    The level grids come from the bench setups (the Renderer would build
+    the same from the same cells)."""
+    import dataclasses
+
+    from owlexabrick_tpu_torch.bench_scene import (
+        bumpy_sphere, helix_bundle, synthetic_volume)
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+    from owlexabrick_tpu_torch.render.surfaces import SurfaceData
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    n_head, n_big = sizes
+    mesh = bumpy_sphere(radius=MESH_RADIUS * n_head, center=[n_head / 2] * 3)
+    z = np.zeros((0, 3), np.float32)
+    segs = helix_bundle(n_big, segments=STREAM_SEGMENTS)
+    surfs = dict(
+        mesh=SurfaceData.from_meshes([mesh], device=device),
+        segs=SurfaceData.from_arrays(z, z, z, z, *segs,
+                                     STREAM_RADIUS * n_big, device=device))
+    cells = {n: volume_to_cells(synthetic_volume(n), 0.004, 3)
+             for n in sizes}
+    iso_ao = dict(iso_surfaces=True, ao_samples=2, ao_dirs=4)
+
+    def row(setup, n, surf=None, shear=False, timestep=None, **cfg_kw):
+        grids, _, fs, _, meta = setup[:5]
+        if cfg_kw:
+            fs = dataclasses.replace(
+                fs, iso_enabled=np.asarray([True, False]),
+                iso_value=np.asarray([ISO_FRAC * meta["value_max"], 0.0],
+                                     np.float32),
+                iso_channel=np.zeros(2, np.int32), ao_enabled=np.bool_(True),
+                ao_length=np.float32(0.5 * n))
+        if timestep is not None:
+            fs = dataclasses.replace(fs, tracer_timestep=np.int32(timestep))
+        lower, level, scal = cells[n]
+        r = Renderer((lower, level, scal[None]), width, height,
+                     cfg=RenderConfig(num_channels=1, **cfg_kw),
+                     frame_state=fs, device=device,
+                     surfaces=None if surf is None else surfs[surf])
+        r._grids_cache[2] = grids
+        r.enable_fast_path()
+        if (r._fast[2] == "shearwarp") != shear:
+            raise SystemExit(f"n={n}: the Renderer took {r._fast[2]!r}")
+        return dict(renderer=r, n=n, meta=meta, surf=surf)
+
+    head, b256 = setups["headline"], setups["blobs256"]
+    return dict(
+        headline_mesh=row(head, n_head, "mesh"),
+        headline_tilted_mesh=row(tilted["headline_tilted"], n_head, "mesh",
+                                 shear=True),
+        blobs256_streamlines=row(b256, n_big, "segs",
+                                 timestep=STREAM_SEGMENTS * 3 // 4 + 1),
+        headline_iso_ao=row(head, n_head, **iso_ao),
+        blobs256_iso_ao=row(b256, n_big, **iso_ao),
+        headline_mesh_iso_ao=row(head, n_head, "mesh", **iso_ao))
+
+
+def _render_timed(r):
+    """One Renderer frame; returns its host-clock ms (ending in a
+    synchronize)."""
+    import torch
+
+    t0 = time.perf_counter()
+    r.render()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_surface_rows(rows, card, n_timed=2):
+    """Each surface / AO row through its Renderer: the first frame and
+    ``n_timed`` more, uncached (progressive frames: the jitter moves the
+    pose); then frame 0 again at its pose, with the camera products
+    cached (a static pose; the surfaces and AO are traced every frame),
+    which must equal the uncached frame 0.  Counts each row's launches
+    and calls of the tiled traces; returns each row's uncached frame 0
+    color (P, 3) for the plain comparison."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import surfaces
+
+    frames = {}
+    tiled = {k: getattr(surfaces, k) for k in (
+        "trace_triangles_tiled", "trace_streamlines_tiled")}
+    for name, row in rows.items():
+        r = row["renderer"]
+        for fn in tiled.values():
+            fn.work.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = launch_counts()
+        unc = [_render_timed(r)]
+        first = r.accum[:, :3].clone()
+        unc += [_render_timed(r) for _ in range(n_timed)]
+        r.reset_accumulation()
+        again = _render_timed(r)  # frame 0's pose, not yet cached
+        r.reset_accumulation()
+        fill = _render_timed(r)  # fills the camera-product cache
+        cached = []
+        for _ in range(n_timed):
+            r.reset_accumulation()
+            cached.append(_render_timed(r))
+        _, mx_c, _ = agree(first, r.accum[:, :3], frac=1.0)
+        surf = r.surf
+        rec = dict(
+            row=name, card=card, lane=r._fast[2] or "aligned",
+            tris=surf.num_tris, segments=surf.num_segments,
+            ao=dict(zip(("combined", "fast"), r._ao_modes())),
+            frames_uncached_ms=[round(t, 3) for t in unc + [again]],
+            cache_first_frame_ms=round(fill, 3),
+            frames_cached_ms=[round(t, 3) for t in cached],
+            cached_vs_uncached_max_abs=mx_c,
+            peak_mem_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
+            tiled_trace_calls={k: fn.work.get("calls", 0)
+                               for k, fn in tiled.items()})
+        rec.update({f"{k}_launches": v - n0[k]
+                    for k, v in launch_counts().items()})
+        rec["lit_share"] = float((first > 0.05).any(-1).float().mean())
+        log("surface path:", json.dumps(rec))
+        if not bool(torch.isfinite(r.accum).all()) or (
+                rec["lit_share"] < 0.02):
+            raise SystemExit(f"{name}: frames not finite or blank")
+        if mx_c > 1e-6:
+            raise SystemExit(f"{name}: cached frame differs by {mx_c}")
+        want_calls = ((["trace_triangles_tiled"] if surf.num_tris else [])
+                      + (["trace_streamlines_tiled"]
+                         if surf.num_segments else []))
+        if any(not rec["tiled_trace_calls"][k] for k in want_calls):
+            raise SystemExit(f"{name}: the tiled trace did not run "
+                             f"({rec['tiled_trace_calls']})")
+        need = ["K1", "K6"] + (["K2a", "K2b"] if r._fast[2] else [])
+        if min(rec[f"{k}_launches"] for k in need) <= 0:
+            raise SystemExit(f"{name}: launched none of some of {need}")
+        frames[name] = first
+    return frames
+
+
+def surface_stages(r, grids, scfg, cam, lattice, w, h, t_stop, n=2):
+    """Host-clock ms (each ending in a synchronize; mean of ``n`` after
+    one warm-up) of a surface row's frame stages at its frame-0 camera:
+    everything before the volume (``Renderer._surfaces_and_iso``:
+    surfaces, iso sweep, AO, shading), each nearest-surface trace the
+    Renderer makes there (one run: ms and the tiled traces' ``work``),
+    the iso sweep alone, and the volume (``render_slabs_camera`` with the
+    row's stop, uncached)."""
+    import torch
+
+    from owlexabrick_tpu_torch.render.slabs import (
+        render_slabs_camera, render_slabs_iso_camera)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return round((time.perf_counter() - t0) * 1e3 / n, 3)
+
+    from owlexabrick_tpu_torch.render import renderer as RM
+    from owlexabrick_tpu_torch.render import surfaces as S
+
+    fs = r.fs
+    out = dict(before_volume_ms=timed(
+        lambda: r._surfaces_and_iso(grids, scfg, cam, lattice, w, h)))
+    # each nearest-surface trace of that stage (the primary rays, then
+    # per AO sample the hemisphere or occluder rays): ms and its work
+    run, traces = RM._nearest_surface, []
+    tiled = (S.trace_triangles_tiled, S.trace_streamlines_tiled)
+
+    def spy(*a, **kw):
+        for fn in tiled:
+            fn.work.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(*a, **kw)
+        torch.cuda.synchronize()
+        traces.append(dict(
+            ms=round((time.perf_counter() - t0) * 1e3, 3),
+            **{fn.__name__: dict(fn.work) for fn in tiled if fn.work}))
+        return res
+
+    for mod in (RM, S):
+        mod._nearest_surface = spy
+    try:
+        r._surfaces_and_iso(grids, scfg, cam, lattice, w, h)
+    finally:
+        for mod in (RM, S):
+            mod._nearest_surface = run
+    out["renderer_traces"] = traces
+    if r.cfg.iso_surfaces:
+        out["iso_sweep_ms"] = timed(lambda: render_slabs_iso_camera(
+            grids, fs, scfg, cam, w, h, lattice=lattice,
+            return_normals=True))
+    out["volume_ms"] = timed(lambda: render_slabs_camera(
+        grids, fs, scfg, cam, w, h, lattice=lattice, t_stop=t_stop))
+    return out
+
+
+def phase_surface_checks(rows, frames, card, device):
+    """Per surface / AO row, after its launches were counted: one
+    profiled uncached frame (device ms, busy share, launches), K1 against
+    its plain twin on a real chunk of the row's frame 0 with the row's
+    surface stop (``t_stop`` from its surfaces, captured from the
+    Renderer's call), and the row's frame 0 with every kernel's plain
+    twin (``Renderer.plain_kernels``) against its kernel frame; and the
+    host-clock times of the frame's stages (``surface_stages``).
+    Returns the K1 results."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import renderer as RM
+
+    k1 = []
+    for name, row in rows.items():
+        r = row["renderer"]
+        r.reset_accumulation()
+        r.render()
+        wall = _render_timed(r)
+        prof = profile_once(r.render)
+        log("surface profile:", json.dumps(dict(
+            row=name, card=card, mode="uncached",
+            **profile_record(wall, prof))))
+
+        run = RM.render_slabs_camera
+        seen = []
+
+        def spy(*a, **kw):
+            if not seen:
+                seen.append((a, {k: v for k, v in kw.items()
+                                 if k in ("lattice", "t_stop")}))
+            return run(*a, **kw)
+
+        RM.render_slabs_camera = spy
+        try:
+            r.resize(r.width, r.height)  # frame 0, products not cached
+            r.render()
+        finally:
+            RM.render_slabs_camera = run
+        (grids, fs, scfg, cam, w, h), kw = seen[0]
+        t_stop = kw["t_stop"]
+        log("surface stages:", json.dumps(dict(
+            row=name, card=card, **surface_stages(r, grids, scfg, cam,
+                                                  kw.get("lattice"), w, h,
+                                                  t_stop))))
+        ci = chunk_inputs(grids, cam, fs, scfg, w, h, SURF_K1_CHUNK,
+                          lattice=kw.get("lattice"))
+        stop = (ci["scale"].to(device),
+                torch.as_tensor(t_stop).to(device).reshape(h, w))
+        res = k1_check(f"{name}_real_chunk_surface_stop", ci, ci["prep"],
+                       None, ci["tables_knots"], w, h, stop=stop)
+        res["card"] = card
+        k1.append(res)
+        del ci, stop
+
+        r.plain_kernels = True
+        try:
+            r.enable_fast_path()
+            r.resize(r.width, r.height)
+            t0 = time.perf_counter()
+            r.render()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            ok, mx, share = agree(frames[name], r.accum[:, :3])
+        finally:
+            r.plain_kernels = False
+            r.enable_fast_path()
+        log(f"surface path {name}: kernel vs plain frame max_abs={mx} "
+            f"share_within_1e-4={share:.6f} plain_frame_ms={ms:.1f}")
+        if not ok:
+            raise SystemExit(f"{name}: kernel frame disagrees with plain")
+    return k1
+
+
+def profile_once(fn, trace_path=None):
+    """One ``fn()`` (ending in a synchronize) under torch.profiler:
+    (device ms, device launches, the port's kernels' {id: (ms, n)}, the
+    top eight kernels [(us, n, name)]); the Chrome trace to
+    ``trace_path`` if given."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    if trace_path is not None:
+        prof.export_chrome_trace(str(trace_path))
+    rows = []
+    for e in prof.key_averages():
+        # kernels only: an aten op's entry repeats the device time of the
+        # kernels it launched
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key[:60]))
+    rows.sort(reverse=True)
+    ours = {}
+    for us, n, k in rows:
+        tag = next((t for f, t in PORT_KERNELS.items() if f in k), None)
+        if tag:
+            ms0, n0 = ours.get(tag, (0.0, 0))
+            ours[tag] = (ms0 + us / 1e3, n0 + n)
+    return (sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows), ours,
+            rows[:8])
+
+
+def profile_record(wall_ms, prof):
+    """The fields a profiled frame logs (wall: an unprofiled frame)."""
+    dev_ms, launches, ours, top = prof
+    return dict(frame_wall_ms=round(wall_ms, 3), device_ms=round(dev_ms, 3),
+                device_busy_share=round(dev_ms / wall_ms, 4),
+                device_launches=launches,
+                port_kernels={t: dict(ms=round(ms, 3), n=n)
+                              for t, (ms, n) in sorted(ours.items())},
+                top=[dict(kernel=k, ms=round(us / 1e3, 3), n=n)
+                     for us, n, k in top])
+
+
 def phase_profile(setups, width, height, render=render_row,
                   modes=("uncached", "cached"), traces=True):
     """With ``--profile``: trace one frame per row and mode (uncached,
@@ -1512,8 +1884,6 @@ def phase_profile(setups, width, height, render=render_row,
     device's busy share of the unprofiled frame time, and write the
     Chrome traces to ``out_dir`` below (if ``traces``)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1528,41 +1898,11 @@ def phase_profile(setups, width, height, render=render_row,
             render(row, width, height, cache=c)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                render(row, width, height, cache=c)
-                torch.cuda.synchronize()
-            if traces:
-                prof.export_chrome_trace(
-                    str(out_dir / f"trace_{name}_{mode}.json"))
-            rows = []
-            for e in prof.key_averages():
-                # kernels only: an aten op's entry repeats the device
-                # time of the kernels it launched
-                if e.device_type != DeviceType.CUDA:
-                    continue
-                dev_us = getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-                if dev_us > 0:
-                    rows.append((dev_us, e.count, e.key[:60]))
-            rows.sort(reverse=True)
-            dev_ms = sum(r[0] for r in rows) / 1e3
-            ours = {}
-            for us, n, k in rows:
-                tag = next((t for f, t in PORT_KERNELS.items() if f in k),
-                           None)
-                if tag:
-                    ms0, n0 = ours.get(tag, (0.0, 0))
-                    ours[tag] = (ms0 + us / 1e3, n0 + n)
-            log("profile:", json.dumps(dict(
-                row=name, mode=mode, frame_wall_ms=round(wall_ms, 3),
-                device_ms=round(dev_ms, 3),
-                device_busy_share=round(dev_ms / wall_ms, 4),
-                device_launches=sum(r[1] for r in rows),
-                port_kernels={t: dict(ms=round(ms, 3), n=n)
-                              for t, (ms, n) in sorted(ours.items())},
-                top=[dict(kernel=k, ms=round(us / 1e3, 3), n=n)
-                     for us, n, k in rows[:8]])))
+            prof = profile_once(
+                lambda: render(row, width, height, cache=c),
+                out_dir / f"trace_{name}_{mode}.json" if traces else None)
+            log("profile:", json.dumps(dict(row=name, mode=mode,
+                                            **profile_record(wall_ms, prof))))
 
 
 def main() -> int:
@@ -1658,6 +1998,18 @@ def main() -> int:
         raise SystemExit(f"the iso path left a kernel unlaunched: {iso}")
     phase_iso_plain(iso_rows, iso_frames, width, height)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    surf_rows = surface_setups(setups, tilted, dev, width, height)
+    reset_launch_counts()
+    surf_frames = phase_surface_rows(surf_rows, card)
+    surf = launch_counts()
+    log("launches on the surface path:", json.dumps(surf))
+    if min(surf[k] for k in ("K1", "K2a", "K2b", "K6")) <= 0:
+        raise SystemExit(f"the surface path left a kernel unlaunched: "
+                         f"{surf}")
+    k1 += phase_surface_checks(surf_rows, surf_frames, card, dev)
+    del surf_rows, surf_frames
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
         # no Chrome traces: a 1080p einsum-lane frame's is tens of MB
@@ -1675,7 +2027,7 @@ def main() -> int:
     k6_chunk = next(r for r in k6 if r["name"] == "headline_chunk")
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
     src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
-    launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k]
+    launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k] + surf[k]
                 for k in aligned}
 
     def entry(name, source, replaces, key, err, res, prefix=""):

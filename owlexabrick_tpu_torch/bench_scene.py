@@ -1,6 +1,8 @@
 """Benchmark scenes (the port of ``owlexabrick_tpu/bench_scene.py:13-97,
 207``): a synthetic multi-level AMR volume -> raw2cells threshold
-collapse -> level grids; the exajet pattern also as streamed cells.
+collapse -> level grids; the exajet pattern also as streamed cells; and
+seeded surfaces to place in them (a bumpy-sphere mesh, a bundle of
+streamline helices).
 
 ``slab_scene_grids`` builds the level grids straight from the cells
 (``level_grids_from_cells``): the bricks only partition the cells and
@@ -14,7 +16,9 @@ import time
 
 import numpy as np
 
+from .core.types import TriangleMesh
 from .render.slabs import level_grids_from_cells
+from .render.tracer import morton_order
 from .tools.raw2cells import volume_to_cells
 
 
@@ -105,3 +109,52 @@ def slab_scene_grids(kind: str, n: int, threshold: float = 0.004,
                 build_s=round(time.time() - t0, 1),
                 value_max=float(scal.max()))
     return grids, meta
+
+
+def bumpy_sphere(radius: float = 14.0, center=(0.0, 0.0, 0.0), nu: int = 72,
+                 nv: int = 72, seed: int = 0) -> TriangleMesh:
+    """A bumpy sphere of 2 nu (nv - 1) triangles (the JAX package's
+    tiled-trace test mesh, tests/test_streamline_tiled.py::_big_mesh:
+    radius 14 +- 2, vertices jittered by a seeded N(0, 0.05)), scaled by
+    ``radius`` / 14 about its center and moved to ``center``."""
+    rng = np.random.default_rng(seed)
+    u = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+    v = np.linspace(1e-3, np.pi - 1e-3, nv)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    r = 14.0 + 2.0 * np.sin(3 * uu) * np.sin(4 * vv)
+    verts = np.stack([r * np.sin(vv) * np.cos(uu), r * np.cos(vv),
+                      r * np.sin(vv) * np.sin(uu)], -1).reshape(-1, 3)
+    verts = verts.astype(np.float32)
+    verts += rng.normal(0, 0.05, verts.shape).astype(np.float32)
+    verts = (verts * np.float32(radius / 14.0)
+             + np.asarray(center, np.float32))
+    i = np.arange(nu)[:, None]
+    j = np.arange(nv - 1)[None]
+    a = i * nv + j
+    b = (i + 1) % nu * nv + j
+    idx = np.stack([np.stack([a, b, a + 1], -1),
+                    np.stack([b, b + 1, a + 1], -1)], 2).reshape(-1, 3)
+    return TriangleMesh(vertices=verts.astype(np.float32),
+                        indices=idx.astype(np.int32))
+
+
+def helix_bundle(n: int, count: int = 64, segments: int = 64,
+                 turns: float = 2.0):
+    """``count`` streamline helices on a square grid over an n^3 volume,
+    each ``segments`` segments climbing z from 0.1n to 0.9n at radius
+    0.04n, in the tracer's emission order (helices by the Morton code of
+    their first point, seed-major).  Returns (seg_a (S, 3), seg_b (S, 3),
+    seg_t (S,) int32: the timestep of each segment's head, 1..segments
+    along a helix)."""
+    side = int(np.ceil(np.sqrt(count)))
+    cx = n * (0.1 + 0.8 * (np.arange(count) % side + 0.5) / side)
+    cy = n * (0.1 + 0.8 * (np.arange(count) // side + 0.5) / side)
+    s = np.linspace(0.0, 1.0, segments + 1)
+    ang = 2 * np.pi * turns * s[None] + np.arange(count)[:, None]
+    pts = np.stack([cx[:, None] + 0.04 * n * np.cos(ang),
+                    cy[:, None] + 0.04 * n * np.sin(ang),
+                    np.broadcast_to(n * (0.1 + 0.8 * s), ang.shape)],
+                   -1).astype(np.float32)
+    pts = pts[morton_order(pts[:, 0])]
+    seg_t = np.tile(np.arange(1, segments + 1, dtype=np.int32), count)
+    return (pts[:, :-1].reshape(-1, 3), pts[:, 1:].reshape(-1, 3), seg_t)

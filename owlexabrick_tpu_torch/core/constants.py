@@ -16,3 +16,6 @@ MAX_CONTOUR_PLANES = 3
 
 # early-ray-termination threshold on accumulated opacity
 TERMINATION_THRESHOLD = 0.98
+
+# primitive-ID code of a streamline hit (programs/exabrick.cu:31-38)
+PRIMID_STREAMLINE = -25

@@ -1,10 +1,11 @@
 """Carry state over from the JAX package.
 
-The reference's ``LevelGrids``, ``FrameState`` and ``ShearWarp`` fields,
-read as numpy arrays, become the port's objects, so tests can run both packages from
-the same state (the renderer's analog of loading a reference model's
-weights).  Works on the reference objects without importing ``jax``:
-every field is read through ``numpy.asarray``.
+The reference's ``LevelGrids``, ``FrameState``, ``ShearWarp`` and
+``SurfaceData`` fields, read as numpy arrays, become the port's objects,
+so tests can run both packages from the same state (the renderer's
+analog of loading a reference model's weights).  Works on the
+reference objects without importing ``jax``: every field is read
+through ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .render.camera import Camera
 from .render.frame import FrameState
 from .render.shearwarp import ShearWarp
 from .render.slabs import LevelGrids, render_device
+from .render.surfaces import SurfaceData
 
 
 def level_grids_from_reference(ref, device="cuda") -> LevelGrids:
@@ -71,3 +73,13 @@ def shearwarp_from_reference(ref) -> ShearWarp:
         coef_v=tuple(float(c) for c in ref.coef_v),
         screen=tuple(int(s) for s in ref.screen),
     )
+
+
+def surface_data_from_reference(ref, device="cuda") -> SurfaceData:
+    """The reference's ``SurfaceData`` (meshes and streamline segments)
+    as the port's, on ``device`` (the card unless the caller asks for
+    the CPU)."""
+    return SurfaceData.from_arrays(
+        *(np.asarray(getattr(ref, k)) for k in (
+            "tri_v0", "tri_e1", "tri_e2", "tri_n", "seg_a", "seg_b",
+            "seg_t", "seg_radius")), device=device)

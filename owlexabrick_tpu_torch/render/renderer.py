@@ -1,21 +1,26 @@
 """High-level renderer, DVR on the slab fast path (the port of the fast
 path of ``owlexabrick_tpu/render/renderer.py``): owns the level grids,
-the frame state and the accumulation buffer, and renders progressive
-frames through ``render_slabs_camera``: an axis-aligned camera directly,
-any other camera through shear-warp (an axis-aligned lattice camera plus
-the two-pass warp), and a frustum no axis can factorize through the
-``reorient_grids`` preview.  The clip box (``set_clip_box``) and DVR
-gradient shading (``RenderConfig.gradient_shading_dvr``) take the
-sweep's einsum lane; the clip box becomes a per-pixel sweep interval
-(``clip_interval``).  Iso surfaces (``RenderConfig.iso_surfaces``,
-``update_iso_values``) take the iso sweep (``render_slabs_iso_camera``):
-its shaded hits are the background and its hit depth stops the volume
-(K1's surface stop).
+the surfaces, the frame state and the accumulation buffer, and renders
+progressive frames through ``render_slabs_camera``: an axis-aligned
+camera directly, any other camera through shear-warp (an axis-aligned
+lattice camera plus the two-pass warp), and a frustum no axis can
+factorize through the ``reorient_grids`` preview.  The clip box
+(``set_clip_box``) and DVR gradient shading
+(``RenderConfig.gradient_shading_dvr``) take the sweep's einsum lane;
+the clip box becomes a per-pixel sweep interval (``clip_interval``).
+Iso surfaces (``RenderConfig.iso_surfaces``, ``update_iso_values``)
+take the iso sweep (``render_slabs_iso_camera``): its shaded hits are
+the background and its hit depth stops the volume (K1's surface stop).
+Meshes and streamline segments (``surfaces=``) are traced on the
+sweep's own rays (``surfaces.trace_surface_pass``, with its dense
+geometric AO): the nearest of them and the iso hits is the background
+and stops the volume.  AO over gradient-shaded iso hits takes the
+lattice estimator (``ao_sweep.ao_shadow_fast``), alone (``ao_fast``) or
+OR-ed with the geometric occluders (``ao_combined``).
 
-Not ported yet (each raises NotImplementedError): meshes and
-streamlines, contour planes, AO on gradient-shaded iso hits (the one AO
-setting that changes the JAX Renderer's fast-path image), and the exact
-wavefront path.
+Not ported yet (each raises NotImplementedError): contour planes and
+``ao_exact``, which sample the exact scene, and the exact wavefront
+path itself.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from . import prng
+from .ao_sweep import ao_shadow_fast, build_ao_lattice, lattice_to
 from .camera import Camera
 from .dvr import accumulate, composite_background, pack_rgba8, ray_box
 from .frame import FrameState, make_frame_state, with_camera
@@ -44,6 +50,7 @@ from .slabs import (
     render_slabs_iso_camera,
     reorient_grids,
 )
+from .surfaces import SurfaceData, _nearest_surface, trace_surface_pass
 
 
 @dataclass(frozen=True)
@@ -56,6 +63,9 @@ class RenderConfig:
     gradient_shading_iso: bool = True
     iso_surfaces: bool = False
     ao_samples: int = 0
+    # fast-path AO only: candidate directions per frame of the lattice
+    # estimator (render/ao_sweep.py)
+    ao_dirs: int = 4
     # secondary field that colormaps iso surfaces (LaunchParams.h:59-60)
     colormap_channel: int = 0
     # adaptive z-stride on the slab fast path (exabrick.cu:1129)
@@ -76,6 +86,11 @@ def default_jitter(frame_id: int) -> Tuple[float, float]:
 
 def _f32s(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def _full(p: int, v, dev) -> torch.Tensor:
+    return torch.full((p,), float(np.float32(v)), dtype=torch.float32,
+                      device=dev)
 
 
 def sweep_rays_world(axis: int, cam: Camera, lattice, width: int,
@@ -142,14 +157,26 @@ class Renderer:
 
     cells: (lower (N, 3) int, level (N,), scalars (C, N) or [(N,)] * C).
     jitter: ``frame_id -> (jx, jy)``, the per-frame sub-pixel shift
-    (default: ``default_jitter``)."""
+    (default: ``default_jitter``).  surfaces: meshes and streamline
+    segments (``SurfaceData`` on ``device``), or None for none."""
+
+    # the JAX Renderer's exact AO switch; its estimator marches the exact
+    # scene, which is not ported (setting it makes AO frames raise)
+    ao_exact = False
+    # run the plain-torch twins of every kernel on the card (the
+    # comparison lane, SlabConfig.plain_sweep); read where the slab
+    # config is built (enable_fast_path, and each shear-warp frame)
+    plain_kernels = False
 
     def __init__(self, cells, width: int = 1024, height: int = 1024,
                  cfg: Optional[RenderConfig] = None,
                  frame_state: Optional[FrameState] = None,
                  voxel_from_world=None, device="cuda",
-                 jitter: Optional[Callable[[int], Tuple[float, float]]] = None):
+                 jitter: Optional[Callable[[int], Tuple[float, float]]] = None,
+                 surfaces: Optional[SurfaceData] = None):
         self.device = render_device(device)
+        self.surf = (surfaces if surfaces is not None
+                     else SurfaceData.empty(self.device))
         lower, level, scalars = cells
         self._lower = np.asarray(lower)
         self._level = np.asarray(level)
@@ -182,6 +209,7 @@ class Renderer:
                 clip_hi=self.world_bounds_hi.copy())
         self.fs = frame_state
         self._grids_cache = {}
+        self._ao_lat = None
         self._fast = None
         self._cam_cache = None
         self._last_pose = None
@@ -257,18 +285,39 @@ class Renderer:
                 device=self.device)
         return self._grids_cache[axis]
 
+    def _ao_modes(self):
+        """(ao_combined, ao_fast): AO over meshes or streamlines with iso
+        occluders under one pooled-direction estimator, or the lattice
+        estimator alone over gradient-shaded iso hits (the JAX
+        Renderer's, renderer.py:547-554).  Geometric AO without iso
+        surfaces runs inside the surface pass."""
+        cfg, surf = self.cfg, self.surf
+        combined = (cfg.ao_samples > 0 and cfg.iso_surfaces
+                    and (surf.num_tris > 0 or surf.num_segments > 0))
+        fast = (cfg.ao_samples > 0 and cfg.iso_surfaces
+                and cfg.gradient_shading_iso and not combined)
+        return combined, fast
+
     def _check_supported(self):
-        """Raise on what the fast path would draw with an unported
-        feature.  AO shades only the iso hits of a gradient-shaded iso
-        sweep (the JAX Renderer's ``ao_fast``, renderer.py:552-554, with
-        ``fs.ao_enabled`` gating the shadow, :691-693); in every other AO
-        setting the JAX Renderer draws the image without AO, as here."""
-        cfg, fs = self.cfg, self.fs
-        if (cfg.ao_samples > 0 and cfg.iso_surfaces
-                and cfg.gradient_shading_iso and bool(fs.ao_enabled)):
-            raise NotImplementedError("ambient occlusion is not ported yet")
-        if bool(np.any(fs.contour_enabled)):
-            raise NotImplementedError("contour planes are not ported yet")
+        """Raise on what needs the exact scene, which the port does not
+        have yet: an enabled contour plane (the surface pass colors it by
+        sampling the scene) and ``ao_exact`` on a frame with AO (its
+        hemisphere rays march the exact iso surfaces)."""
+        if bool(np.any(self.fs.contour_enabled)):
+            raise NotImplementedError("contour planes need the exact "
+                                      "scene, which is not ported yet")
+        if self.ao_exact and any(self._ao_modes()):
+            raise NotImplementedError("ao_exact needs the exact iso "
+                                      "march, which is not ported yet")
+
+    def _ao_lattice_dev(self):
+        """The finest-lattice AO field of the axis-2 level grids, built
+        once on the host (``build_ao_lattice``) and kept on the
+        device."""
+        if self._ao_lat is None:
+            self._ao_lat = lattice_to(build_ao_lattice(self._grids_for(2)),
+                                      self.device)
+        return self._ao_lat
 
     def _slab_config(self, grids) -> SlabConfig:
         """Slab spacing = dt * finest cell width over the sweep extent
@@ -280,7 +329,8 @@ class Renderer:
                           gradient_shading_dvr=self.cfg.gradient_shading_dvr,
                           gradient_shading_iso=self.cfg.gradient_shading_iso,
                           colormap_channel=self.cfg.colormap_channel,
-                          adaptive_stride=self.cfg.adaptive_stride)
+                          adaptive_stride=self.cfg.adaptive_stride,
+                          plain_sweep=self.plain_kernels)
 
     @staticmethod
     def _grid_to_voxel_normals(n_grid: torch.Tensor, axis: int):
@@ -343,6 +393,156 @@ class Renderer:
                 return int(axis), sw
         return None
 
+    def _surfaces_and_iso(self, grids, scfg, cam, lattice, rw: int,
+                          rh: int):
+        """The frame's surfaces on the sweep's own rays (the JAX
+        Renderer's _render_fast, renderer.py:532-817): meshes and
+        streamlines (traceSurfaces, exabrick.cu:1475-1529), the iso
+        sweep, AO, and the clip box.  Returns (bg (3,) or (P, 3), t_start,
+        t_stop): the shaded background and the volume's sweep interval
+        (None: unbounded)."""
+        fs, cfg, surf, dev = self.fs, self.cfg, self.surf, self.device
+        p = rw * rh
+        key = prng.fold_in(prng.prng_key(JITTER_SEED), int(fs.frame_id))
+        bg = torch.zeros(3, dtype=torch.float32, device=dev)
+        t_start = t_stop = t_surf = geom = None
+        need_surf = surf.num_tris > 0 or surf.num_segments > 0
+        clip = bool(fs.clip_enabled)
+        ao_combined, ao_fast = self._ao_modes()
+        if need_surf or clip or ao_fast or ao_combined:
+            d_unit, rnorm = sweep_rays_world(grids.axis, cam, lattice, rw, rh,
+                                             self.voxel_from_world, dev)
+            o_w = _f32s(fs.cam_pos, dev).expand(p, 3)
+
+        if need_surf and ao_combined:
+            # shading waits for the combined AO shadow below
+            t_g, n_w_g, base_g, amb_g, _ = _nearest_surface(
+                fs, surf, cfg, o_w, d_unit, _full(p, 1e-6, dev),
+                _full(p, 2e10, dev),
+                include_contours=False, include_iso=False,
+                current_timestep=fs.tracer_timestep, screen=(rw, rh))
+            t_w = torch.where(torch.isfinite(t_g), t_g, 2e10)
+            geom = (t_w / rnorm, n_w_g, base_g, amb_g)
+            t_surf = t_stop = geom[0]
+            bg = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+        elif need_surf:
+            t_w, bg = trace_surface_pass(
+                fs, surf, cfg, o_w, d_unit, prng.fold_in(key, 3),
+                include_iso=False, include_contours=False, screen=(rw, rh))
+            t_surf = t_stop = t_w / rnorm  # world t -> sweep scale
+
+        if cfg.iso_surfaces:
+            # the iso sweep: its hit depth caps the volume interval
+            # (integrateVolume t1 = min(t1, surface t), exabrick.cu:
+            # 1675-1680); the nearest of iso and geometry is the
+            # background (traceSurfaces' comparator)
+            want_n = cfg.gradient_shading_iso or ao_fast or ao_combined
+            out = render_slabs_iso_camera(grids, fs, scfg, cam, rw, rh,
+                                          lattice=lattice,
+                                          return_normals=want_n)
+            iso_rgba, t_iso = out[0], out[1]
+            iso_bg = iso_rgba[:, :3] * iso_rgba[:, 3:4]
+            if want_n:
+                # raygen surface shading (exabrick.cu:1644-1650): the
+                # shaded base color scaled by |dir . Ng| * (1 - AO shadow)
+                n_vox = self._grid_to_voxel_normals(out[2], grids.axis)
+                has_n = torch.linalg.norm(n_vox, dim=-1) > 0.0
+                cosf = out[3]
+                shadow = torch.zeros(p, dtype=torch.float32, device=dev)
+                if ao_fast:
+                    hit_w = o_w + (t_iso * rnorm)[:, None] * d_unit
+                    shadow = ao_shadow_fast(
+                        self._ao_lattice_dev(), fs,
+                        self._to_voxel(hit_w).flip(-1), n_vox.flip(-1),
+                        prng.fold_in(key, 7), ao_samples=cfg.ao_samples,
+                        ao_dirs=cfg.ao_dirs)
+                    if not bool(fs.ao_enabled):
+                        shadow = torch.zeros_like(shadow)
+                if cfg.gradient_shading_iso and not ao_combined:
+                    iso_bg = torch.where(
+                        has_n[:, None],
+                        iso_bg * (cosf * (1.0 - shadow))[:, None], iso_bg)
+            if t_surf is None:
+                bg, t_stop = iso_bg, t_iso
+            else:
+                iso_wins = t_iso < t_surf
+                bg = torch.where(iso_wins[:, None], iso_bg, bg)
+                t_stop = torch.minimum(t_iso, t_surf)
+            if ao_combined:
+                bg = self._ao_combined(geom, t_iso, iso_wins, iso_bg, n_vox,
+                                       has_n, cosf, o_w, d_unit, rnorm, key,
+                                       rw, rh)
+
+        if clip:
+            # the clip box shrinks the volume interval only (clipRay,
+            # exabrick.cu:1258-1264); surfaces render unclipped
+            t_start, t_stop = clip_interval(
+                grids.axis, cam, lattice, rw, rh, self.voxel_from_world,
+                fs.cam_pos, fs.clip_lo, fs.clip_hi, dev, t_stop=t_stop)
+        return bg, t_start, t_stop
+
+    def _to_voxel(self, pts_w):
+        """(P, 3) world points (row vectors) -> voxel space."""
+        m = self.voxel_from_world
+        return pts_w @ _f32s(m[:, :3].T, pts_w.device) + _f32s(
+            m[:, 3], pts_w.device)
+
+    def _ao_combined(self, geom, t_iso, iso_wins, iso_bg, n_vox, has_n, cosf,
+                     o_w, d_unit, rnorm, key, rw: int, rh: int):
+        """AO over the visible surface, iso or geometry (the JAX
+        Renderer's ao_combined, renderer.py:706-799; raygen AO against
+        all surfaces but contour planes, exabrick.cu:1612-1645): lattice
+        shadow volumes give the iso occlusion, the traced meshes and
+        streamlines along the same per-pixel pool directions the
+        geometric occlusion.  Returns the shaded background (P, 3)."""
+        fs, cfg, surf, dev = self.fs, self.cfg, self.surf, self.device
+        p = rw * rh
+        t_sw_g, n_w_g, base_g, amb_g = geom
+        m3 = _f32s(self.voxel_from_world[:, :3], dev)
+        minv = _f32s(np.linalg.inv(
+            np.asarray(self.voxel_from_world, np.float64)[:, :3]), dev)
+
+        def unit(v):
+            return v / torch.clamp(torch.linalg.norm(v, dim=-1,
+                                                     keepdim=True), min=1e-20)
+
+        pos_w = o_w + (torch.minimum(t_iso, t_sw_g) * rnorm)[:, None] * d_unit
+        # winner normals, world and voxel frames (row vectors: n_vox =
+        # n_w @ inv(M), n_w = n_vox @ M)
+        wins = iso_wins[:, None]
+        n_w_eff = torch.where(wins, unit(n_vox @ m3), n_w_g)
+        n_vox_eff = torch.where(wins, n_vox, unit(n_w_g @ minv))
+        origin = pos_w + n_w_eff * 1e-3
+
+        def occ_geom(d_pix):
+            # d_pix: (P, 3) grid zyx -> world direction
+            d_w = unit(d_pix.flip(-1) @ minv.T)
+            at = _nearest_surface(
+                fs, surf, cfg, origin, d_w, _full(p, 1e-4, dev),
+                _full(p, fs.ao_length, dev),
+                include_contours=False, include_iso=False,
+                current_timestep=fs.tracer_timestep, screen=(rw, rh))[0]
+            return torch.isfinite(at).to(torch.float32)
+
+        shadow = ao_shadow_fast(
+            self._ao_lattice_dev(), fs, self._to_voxel(pos_w).flip(-1),
+            n_vox_eff.flip(-1), prng.fold_in(key, 7),
+            ao_samples=cfg.ao_samples, geom_occluder=occ_geom,
+            ao_dirs=cfg.ao_dirs)
+        if not bool(fs.ao_enabled):
+            shadow = torch.zeros_like(shadow)
+        iso_shaded = iso_bg
+        if cfg.gradient_shading_iso:
+            iso_shaded = torch.where(
+                has_n[:, None], iso_bg * (cosf * (1.0 - shadow))[:, None],
+                iso_bg)
+        has_n_g = torch.linalg.norm(n_w_g, dim=-1) > 0.0
+        shade_g = amb_g[:, None] + base_g * (
+            (d_unit * n_w_g).sum(-1).abs() * (1.0 - shadow))[:, None]
+        bg_g = torch.where((t_sw_g < 1e9)[:, None],
+                           torch.where(has_n_g[:, None], shade_g, base_g), 0.0)
+        return torch.where(wins, iso_shaded, bg_g)
+
     def _render_fast(self) -> np.ndarray:
         self._check_supported()
         grids, scfg, cam_r = self._fast
@@ -394,30 +594,8 @@ class Renderer:
         self._last_pose = pose
         self._last_pose_grids = grids
 
-        bg = torch.zeros(3, dtype=torch.float32, device=self.device)
-        t_start = t_stop = None
-        if self.cfg.iso_surfaces:
-            # the iso sweep: its shaded hits are the background and its
-            # hit depth caps the volume interval (integrateVolume
-            # t1 = min(t1, surface t), exabrick.cu:1675-1680)
-            want_n = self.cfg.gradient_shading_iso
-            out = render_slabs_iso_camera(grids, self.fs, scfg, cam, rw, rh,
-                                          lattice=lattice,
-                                          return_normals=want_n)
-            iso_rgba, t_stop = out[0], out[1]
-            bg = iso_rgba[:, :3] * iso_rgba[:, 3:4]
-            if want_n:
-                # raygen surface shading (exabrick.cu:1644-1650): the
-                # shaded base color scaled by |dir . Ng| where Ng exists
-                n_vox = self._grid_to_voxel_normals(out[2], grids.axis)
-                has_n = torch.linalg.norm(n_vox, dim=-1) > 0.0
-                bg = torch.where(has_n[:, None], bg * out[3][:, None], bg)
-        if bool(self.fs.clip_enabled):
-            # the clip box shrinks the volume interval only (clipRay)
-            t_start, t_stop = clip_interval(
-                grids.axis, cam, lattice, rw, rh, self.voxel_from_world,
-                self.fs.cam_pos, self.fs.clip_lo, self.fs.clip_hi,
-                self.device, t_stop=t_stop)
+        bg, t_start, t_stop = self._surfaces_and_iso(grids, scfg, cam,
+                                                     lattice, rw, rh)
         rgba = render_slabs_camera(grids, self.fs, scfg, cam, rw, rh,
                                    camera_cache=cam_cache, lattice=lattice,
                                    t_start=t_start, t_stop=t_stop)
@@ -426,7 +604,7 @@ class Renderer:
             # one screen-space homography warp finishes the frame
             color = warp_image(color, shear, self.width, self.height,
                                jx=0.5 + jx, jy=0.5 + jy, shift_i=jx,
-                               shift_j=jy)
+                               shift_j=jy, plain=scfg.plain_sweep)
         self.accum, shown = accumulate(color, self.accum,
                                        int(self.fs.frame_id))
         words = pack_rgba8(shown).cpu().numpy().astype(np.uint32)

@@ -61,10 +61,11 @@ def test_renderer_static_pose_uses_camera_cache(cells, tilted):
 
 
 def test_renderer_unported_features_raise(cells):
-    """AO on gradient-shaded iso hits and contour planes still raise; AO
-    where the JAX fast path draws no AO term, the clip box and DVR
-    gradient shading render (the einsum lane), and so do iso surfaces
-    (the iso sweep, then K1 with its surface stop)."""
+    """Contour planes and ``ao_exact`` (the exact scene) still raise; AO
+    on gradient-shaded iso hits (the lattice estimator) and AO where the
+    JAX fast path draws no AO term render, the clip box and DVR gradient
+    shading render (the einsum lane), and so do iso surfaces (the iso
+    sweep, then K1 with its surface stop)."""
     import dataclasses
 
     r = _renderer(cells, False)
@@ -78,8 +79,11 @@ def test_renderer_unported_features_raise(cells):
                      _renderer(cells, False).fs, ao_enabled=np.bool_(True)),
                  device="cpu")
     r.update_iso_values([0.55, 0.0], [0, 0], [True, False])
+    assert r.enable_fast_path()
+    assert (r.image_uint8(r.render())[..., :3] > 16).any()
+    r.ao_exact = True
     with pytest.raises(NotImplementedError):
-        r.enable_fast_path()
+        r.render()
     r = _renderer(cells, False)
     r.fs = dataclasses.replace(r.fs, ao_enabled=np.bool_(True))
     assert (r.image_uint8(r.render())[..., :3] > 16).any()

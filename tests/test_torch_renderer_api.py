@@ -3,8 +3,8 @@ JAX Renderer's fast path: ``update_dt`` and ``resize`` give the JAX
 Renderer's next frames, and every AO setting that leaves the JAX fast
 path's image without AO renders here too, under the golden gate (every
 pixel within 1/255, >= 99% bit-exact), on the 32^3 golden scene at
-64x48 with the default (JAX) jitter.  The one AO setting that shades
-still raises."""
+64x48 with the default (JAX) jitter.  What needs the exact scene
+(contour planes, ``ao_exact``) raises."""
 
 import dataclasses
 
@@ -88,20 +88,32 @@ def test_ao_settings_without_shading_match_jax(cells, case):
     _gate(*_pair(cells, **kw), frames=2)
 
 
-def test_ao_on_shaded_iso_hits_raises(cells):
-    """AO samples, iso surfaces, gradient shading iso and fs.ao_enabled:
-    the JAX fast path shades the hits with AO, which is not ported."""
+@pytest.mark.parametrize("feature", ["contour_plane", "ao_exact"])
+def test_exact_scene_features_raise(cells, feature):
+    """An enabled contour plane and ``ao_exact`` on a frame with AO sample
+    the exact scene, which is not ported: enabling the fast path or
+    rendering raises; without them the fast path enables (the AO frames
+    themselves: tests/test_torch_renderer_surfaces.py)."""
     lower, level, scal = cells
     r = Renderer((lower, level, scal[None]), W, H,
                  cfg=RenderConfig(num_channels=1, iso_surfaces=True,
-                                  ao_samples=4), device="cpu")
+                                  ao_samples=2), device="cpu")
     r.update_iso_values([ISO, 0.0], [0, 0], [True, False])
     _set_ao(r, True)
+
+    def turn(on):
+        if feature == "contour_plane":
+            r.fs = dataclasses.replace(r.fs, contour_enabled=np.asarray(
+                [on, False, False]))
+        else:
+            r.ao_exact = on
+
+    turn(True)
     with pytest.raises(NotImplementedError):
         r.enable_fast_path()
-    _set_ao(r, False)
+    turn(False)
     assert r.enable_fast_path()
-    _set_ao(r, True)
+    turn(True)
     with pytest.raises(NotImplementedError):
         r.render()
 

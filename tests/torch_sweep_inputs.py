@@ -167,3 +167,24 @@ def k3_mids_inputs(case):
     return dict(mids=mids, taps=taps, scale=scale, t_start=t_start,
                 t_stop=t_stop, sec=sec, lut=lut,
                 dom=np.asarray([0.1, 0.9], np.float32), dz=np.float32(0.75))
+
+
+def camera_rays(w, h, eye, at, seed=1):
+    """Unit pinhole rays of a w x h screen from ``eye`` toward ``at``
+    (tests/test_streamline_tiled.py::_camera_rays with the eye and the
+    target as arguments).  Returns (o (P, 3), d (P, 3)) float32 numpy."""
+    rng = np.random.default_rng(seed)
+    o0 = np.asarray(eye, np.float32)
+    fwd = np.asarray(at, np.float32) - o0
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, np.asarray([0, 1, 0], np.float32))
+    right /= np.linalg.norm(right)
+    vup = np.cross(right, fwd)
+    i = (np.arange(w) + 0.5) / w - 0.5
+    j = (np.arange(h) + 0.5) / h - 0.5
+    d = (fwd[None, None] + 0.9 * i[None, :, None] * right[None, None]
+         + 0.7 * j[:, None, None] * vup[None, None]).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(o0, d.shape).copy()
+    o += rng.normal(0, 1e-3, o.shape).astype(np.float32)
+    return o.astype(np.float32), d.astype(np.float32)
