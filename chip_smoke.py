@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``owlexabrick_tpu_torch/csrc`` and
-drives the port's five paths on the card: the axis-aligned slab-sweep
+drives the port's paths on the card: the axis-aligned slab-sweep
 DVR (camera products whose x stage is K6, then the sweep K1), the
 shear-warp tilted-camera path (an axis-aligned lattice camera swept by
 K6 + K1, then the two-pass warp K2a + K2b), the sweep's einsum lane (the
@@ -13,7 +13,9 @@ multi-channel clip: fields rebuilt per slab, then K4) and the iso-surface path (
 colormap recolor through K5, the volume stopped at the hits by K1's
 surface stop) and the surface path (meshes, streamline segments and the
 lattice AO through the ``Renderer``: the traces and the AO estimator are
-torch ops, their depth K1's surface stop).  Phases, each of which fails
+torch ops, their depth K1's surface stop), and the exact path (the
+scene build, the region march, the exact iso march, contour planes,
+``ao_exact``: torch ops, no port kernel).  Phases, each of which fails
 the run:
 
 1. device: the card's name and power limit, and the kernel build
@@ -89,8 +91,31 @@ the run:
     surface stop, and the row's frame 0 against its plain frame
     (``Renderer.plain_kernels``).
 
+14. the exact path (``Renderer(scene)`` without ``enable_fast_path()``;
+    the scene built by the port's pipeline with the native core, built
+    from ``owlexabrick_tpu_torch/native/exabrick_native.cpp`` into
+    ``build/torch_native/``): the eight exact-path goldens (wavefront,
+    iso, contour, clipbox, mesh_volume, tracer_segments, multichannel,
+    ao_exact) at 96x64 on the card under the golden gate;
+15. ``headline_exact``: the 64^3 bench scene and camera at 1920x1080,
+    exact DVR, EXACT_FRAMES frames: the scene's build seconds and bytes
+    on the card, the frame ms, one profiled frame (launches, busy
+    share), the region iterations of frame 0's rays, the peak MB, frame
+    0's march at half the default ray batch and at the default in turns,
+    and frame 0 against the same port code on the CPU on every
+    EXACT_CPU_STRIDE-th pixel under ``agree``'s gate (no K1-K6 kernel
+    may launch on this path);
+16. ``headline_contour``: the headline fast path with one contour plane
+    through the centre (colored from the exact scene), through the
+    surface rows' phases: frames, launches, a profiled frame, K1 on a
+    real chunk under the plane's stop against its plain twin, and the
+    frame against its plain frame;
+17. ``blobs256_scene``: the 256^3 scene (7,431,411 cells) built with the
+    native core and moved to the card (build s, MB), then one exact
+    frame at BLOBS256_EXACT_SIZE.
+
 Launch counts are set to 0 just before each path (aligned, tilted,
-einsum lane, iso, surfaces) and read just after; a kernel of a path
+einsum lane, iso, surfaces, contour) and read just after; a kernel of a path
 that launched no time there fails the run, and so does an uncached
 megakernel frame whose K6 launches are not one per 8 levels of every
 chunk it swept, and a one-channel clip frame that does not launch K3
@@ -108,7 +133,7 @@ megakernel rows (``phase_profile``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card, and the one before that lists each
-kernel with its launches on the five paths, its error against its plain
+kernel with its launches on the six fast paths, its error against its plain
 version, its time, its plain version's time, its bound and, for K5 and
 K6, the library call's time.
 Exits non-zero without a CUDA card or without the port's sources.
@@ -173,6 +198,15 @@ GOLDEN_JITTER = {0: (0.11854469776153564, -0.06521260738372803),
 # whose K1 is held to its plain twin under the row's surface stop
 MESH_RADIUS, STREAM_RADIUS, STREAM_SEGMENTS = 0.3, 0.0375, 64
 SURF_K1_CHUNK = 2
+# the exact path: frames per row; every EXACT_CPU_STRIDE-th pixel of the
+# headline's exact frame 0 is held to the same port code on the CPU; the
+# blobs256 exact frame's size, fixed from the headline's exact frame time
+# in the chip run PERF.md records (1080p if under 15 s, else 960x540)
+EXACT_FRAMES, EXACT_CPU_STRIDE = 2, 64
+BLOBS256_EXACT_SIZE = (1920, 1080)
+# the headline_contour row's plane: normal z through the volume's centre
+# (offset 0.5 of the bounds box)
+CONTOUR_NORMAL, CONTOUR_OFFSET = (0.0, 0.0, 1.0), 0.5
 # kernel vs plain: within TOL_PX on FRAC_PX of pixels, TOL_ALL on all
 # (the 2e-2 admits saturation-collapse flips at alpha ~ 0.98)
 TOL_PX, FRAC_PX, TOL_ALL = 1e-4, 0.999, 2e-2
@@ -1829,6 +1863,344 @@ def phase_surface_checks(rows, frames, card, device):
     return k1
 
 
+# ----------------------------------------------------------------------------
+# the exact path: the scene build, the exact goldens, headline_exact,
+# headline_contour, blobs256_scene
+# ----------------------------------------------------------------------------
+
+def exact_scene(n, device):
+    """The bench scene of edge n (``synthetic_volume(n)`` at threshold
+    0.004, 3 levels) built by the port's pipeline with the native core on
+    the host, then moved to ``device``.  Returns (host scene, device
+    scene, cells, build s, move s)."""
+    import torch
+
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.pipeline import scene_from_cells
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    cells = volume_to_cells(synthetic_volume(n), 0.004, 3)
+    t0 = time.perf_counter()
+    host = scene_from_cells(cells[0], cells[1], [cells[2]], device="cpu")[0]
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = host.to(device)
+    torch.cuda.synchronize()
+    return host, scene, cells, build_s, time.perf_counter() - t0
+
+
+def golden_surfaces(n, device):
+    """The mesh_volume golden's quad and the tracer_segments golden's
+    helix (tests/test_golden_images.py) as port SurfaceData."""
+    from owlexabrick_tpu_torch.render.surfaces import SurfaceData
+
+    v = np.asarray([[2.0, 2.0, n * 0.7], [n - 2.0, 2.0, n * 0.55],
+                    [n - 2.0, n - 2.0, n * 0.55], [2.0, n - 2.0, n * 0.7]],
+                   np.float32)
+    tris = np.asarray([[0, 1, 2], [0, 2, 3]])
+    v0 = v[tris[:, 0]]
+    e1, e2 = v[tris[:, 1]] - v0, v[tris[:, 2]] - v0
+    nrm = np.cross(e1, e2)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    z = np.zeros((0, 3), np.float32)
+    t = np.linspace(0.0, 4.0 * np.pi, 33)
+    pts = np.stack([n * 0.5 + n * 0.55 * np.cos(t),
+                    n * 0.5 + n * 0.55 * np.sin(t),
+                    n * 0.8 + t * (n * 0.2 / (4.0 * np.pi))],
+                   axis=1).astype(np.float32)
+    return dict(
+        quad=SurfaceData.from_arrays(v0, e1, e2, nrm, z, z,
+                                     np.zeros(0, np.int32), 0.5, device),
+        helix=SurfaceData.from_arrays(z, z, z, z, pts[:-1], pts[1:],
+                                      np.arange(1, 33, dtype=np.int32), 1.2,
+                                      device))
+
+
+def phase_exact_goldens(device, card):
+    """The eight exact-path goldens (tests/test_golden_images.py's
+    wavefront, iso, contour, clipbox, mesh_volume, tracer_segments,
+    multichannel and ao_exact) through ``Renderer(scene)`` on the card,
+    the scene built by the port's pipeline, under the golden gate."""
+    import dataclasses
+
+    from owlexabrick_tpu_torch.pipeline import scene_from_cells
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+    from owlexabrick_tpu_torch.utils.png import golden_gate, read_png
+
+    w, h, n = 96, 64, 32
+    _, scene, cells, build_s, _ = exact_scene(n, device)
+    surf = golden_surfaces(n, device)
+    iso = dict(iso_enabled=np.asarray([True, False]),
+               iso_value=np.asarray([0.55, 0.0], np.float32),
+               iso_channel=np.zeros(2, np.int32))
+    normals = np.zeros((3, 3), np.float32)
+    normals[0] = [0.0, 0.0, 1.0]
+    recipes = dict(
+        wavefront=({}, None, {}, 2),
+        iso=(dict(iso_surfaces=True), None, iso, 2),
+        contour=({}, None, dict(
+            contour_enabled=np.asarray([True, False, False]),
+            contour_normal=normals,
+            contour_offset=np.asarray([0.65, 0.5, 0.5], np.float32),
+            contour_channel=np.zeros(3, np.int32)), 2),
+        clipbox=({}, None, dict(
+            clip_enabled=np.bool_(True),
+            clip_lo=np.asarray([n * 0.25, 0.0, 0.0], np.float32),
+            clip_hi=np.asarray([n, n, n * 0.8], np.float32)), 2),
+        mesh_volume=({}, "quad", {}, 2),
+        tracer_segments=({}, "helix", dict(tracer_timestep=np.int32(25)),
+                         2),
+        multichannel=(dict(num_channels=2), None, {}, 2),
+        ao_exact=(dict(iso_surfaces=True, ao_samples=2), None, dict(
+            iso, ao_enabled=np.bool_(True), ao_length=np.float32(n * 0.5)),
+                  6))
+    cam = Camera.look_at([n / 2, n / 2, n * 2.1], [n / 2] * 3, [0, 1, 0],
+                         45.0, w, h)
+    for name, (cfg_kw, sname, patch, frames) in recipes.items():
+        s = scene
+        if name == "multichannel":
+            lower, level, scal = cells
+            s = scene_from_cells(lower, level, [scal, 1.05 - scal],
+                                 num_range_channels=2, device=device)[0]
+            fs = make_frame_state(cam, 2, [[0.0, 1.05], [0.0, 4.0]], dt=1.0,
+                                  opacity_scale=0.5)
+        else:
+            fs = make_frame_state(cam, 1, [[0.0, 1.05]], dt=1.0,
+                                  opacity_scale=0.7)
+        r = Renderer(s, w, h, cfg=RenderConfig(**cfg_kw),
+                     frame_state=dataclasses.replace(fs, **patch),
+                     device=device,
+                     surfaces=None if sname is None else surf[sname])
+        t0 = time.perf_counter()
+        img = r.image_uint8(r.render_frames(frames))
+        ms = (time.perf_counter() - t0) * 1e3 / frames
+        want = read_png(str(REPO / "tests" / "golden" / f"{name}.png"))
+        ok, mx, exact = golden_gate(img, want)
+        log(f"exact golden {name}: max_diff={mx} exact={exact:.4f} "
+            f"frame_ms={ms:.1f} {'pass' if ok else 'FAIL'}")
+        if not ok or not (img[..., :3] > 16).any():
+            raise SystemExit(f"exact golden {name} failed on the card")
+    log(f"exact goldens: 32^3 scene built in {build_s:.3f} s ({card})")
+
+
+def bench_frame_state(n, value_max, width, height):
+    """bench.py's camera and TF at edge n (as ``bench_setup``)."""
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+
+    cam = Camera.look_at(from_=[n / 2, n / 2, n * 2.2],
+                         at=[n / 2, n / 2, n / 2], up=[0, 1, 0],
+                         fovy_degrees=45.0, width=width, height=height)
+    return make_frame_state(cam, 1, [[0.0, value_max]], dt=1.0,
+                            opacity_scale=0.7)
+
+
+def exact_frames(r, n_frames):
+    """``n_frames`` progressive exact frames of Renderer ``r`` from frame
+    0; returns (host-clock ms per frame, frame 0's color (P, 3))."""
+    import torch
+
+    r.reset_accumulation()
+    times, first = [], None
+    for i in range(n_frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        times.append(round((time.perf_counter() - t0) * 1e3, 3))
+        if i == 0:
+            first = r.accum[:, :3].clone()
+    return times, first
+
+
+def phase_headline_exact(device, card):
+    """``headline_exact``: the 64^3 bench scene (native build, moved to
+    the card) and camera at 1920x1080, exact DVR through
+    ``Renderer(scene)``, EXACT_FRAMES frames: the frame ms, its launches
+    and busy share (one profiled frame), the region iterations of frame
+    0's rays (``trace_dvr(..., return_stats=True)``), the peak MB and
+    frame 0's march at half the default ray batch and at the default, in
+    turns; one default batch of gradient-shaded rays (analytic and
+    central differences: ms and peak MB); frame 0 against the same port
+    code on the CPU on every
+    EXACT_CPU_STRIDE-th pixel under ``agree``'s gate.  No K1-K6 kernel
+    runs on this path."""
+    import dataclasses
+
+    import torch
+
+    from owlexabrick_tpu_torch.render import prng
+    from owlexabrick_tpu_torch.render.dvr import (
+        composite_background, generate_rays, ray_batch, trace_dvr)
+    from owlexabrick_tpu_torch.render.renderer import (
+        EXACT_SEED, RenderConfig, Renderer)
+
+    w, h, n = 1920, 1080, 64
+    host, scene, cells, build_s, move_s = exact_scene(n, device)
+    fs = bench_frame_state(n, float(cells[2].max()), w, h)
+    r = Renderer(scene, w, h, cfg=RenderConfig(), frame_state=fs,
+                 device=device)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, first = exact_frames(r, EXACT_FRAMES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    counts = launch_counts()
+    if any(counts.values()):
+        raise SystemExit(f"the exact frame launched port kernels: {counts}")
+    prof = profile_once(r.render)
+
+    # frame 0's rays again, for their region iterations and the CPU check
+    p = w * h
+    key = prng.fold_in(prng.prng_key(EXACT_SEED), 0)
+    rays = []
+    for dev in (device, torch.device("cpu")):
+        jit = prng.uniform(prng.fold_in(key, 1), (p, 2), dev)
+        off = prng.uniform(prng.fold_in(key, 2), (p,), dev)
+        rays.append((*generate_rays(fs, w, h, jit, dev), off))
+    o, d, off = rays[0]
+    t0 = time.perf_counter()
+    rgba, iters = trace_dvr(scene, fs, r.cfg, o, d, off, return_stats=True)
+    torch.cuda.synchronize()
+    trace_ms = (time.perf_counter() - t0) * 1e3
+    # the ray batch: frame 0's march at half the default batch and at the
+    # default, in turns (ms and peak MB each)
+    batch = ray_batch(scene)
+    turns = []
+    for b in (batch // 2, batch, batch, batch // 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trace_dvr(scene, fs, r.cfg, o, d, off, batch=b)
+        torch.cuda.synchronize()
+        turns.append(dict(batch=b, ms=round(
+            (time.perf_counter() - t0) * 1e3, 3), peak_mem_mb=round(
+            torch.cuda.max_memory_allocated() / 1e6, 1)))
+    # gradient shading: one full default batch of frame 0's rays (every
+    # k-th pixel) with analytic gradients and with central differences
+    # (6 sample points a ray, so a sixth of the batch): ms and peak MB
+    grad_batches = []
+    for kw, pts in ((dict(), 1), (dict(analytic_gradients=False), 6)):
+        cfg_g = dataclasses.replace(r.cfg, gradient_shading_dvr=True, **kw)
+        b = ray_batch(scene, pts)
+        sel = torch.arange(0, p, max(1, p // b), device=device)[:b]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g_rgba = trace_dvr(scene, fs, cfg_g, o[sel], d[sel], off[sel])
+        torch.cuda.synchronize()
+        grad_batches.append(dict(
+            analytic=not kw, points_per_ray=pts, rays=int(sel.numel()),
+            ms=round((time.perf_counter() - t0) * 1e3, 3),
+            peak_mem_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
+            finite=bool(torch.isfinite(g_rgba).all())))
+    idx = torch.arange(0, p, EXACT_CPU_STRIDE)
+    o_c, d_c, off_c = (x[idx] for x in rays[1])
+    t0 = time.perf_counter()
+    want = composite_background(trace_dvr(host, fs, r.cfg, o_c, d_c, off_c),
+                                torch.zeros(3))
+    cpu_s = time.perf_counter() - t0
+    ok, mx, share = agree(first[idx.to(device)].cpu(), want)
+    same = float((composite_background(rgba, torch.zeros(3, device=device))
+                  - first).abs().max())
+    rec = dict(
+        row="headline_exact", card=card, cells=int(cells[0].shape[0]),
+        regions=int(scene.region_lo.shape[0]),
+        bricks=int(scene.brick_lower.shape[0]),
+        max_bricks_per_region=scene.max_bricks_per_region,
+        tree_depth=scene.tree_depth, scene_build_s=round(build_s, 3),
+        scene_to_card_s=round(move_s, 3),
+        scene_mb=round(scene.nbytes() / 1e6, 3), frames_ms=times,
+        trace_dvr_frame0_ms=round(trace_ms, 3), batch_turns=turns,
+        gradient_batches=grad_batches,
+        peak_mem_mb=round(peak_mb, 1),
+        region_iters=dict(mean=float(iters.mean()),
+                          max=float(iters.max()),
+                          total=float(iters.sum()),
+                          rays_marched=int((iters > 0).sum())),
+        frame0_retrace_max_abs=same,
+        cpu_check=dict(rays=int(idx.numel()), max_abs=mx,
+                       share_within_1e4=share, cpu_s=round(cpu_s, 1)),
+        lit_share=float((first > 0.05).any(-1).float().mean()),
+        **profile_record(times[-1], prof))
+    log("exact path:", json.dumps(rec))
+    if not bool(torch.isfinite(r.accum).all()) or rec["lit_share"] < 0.05:
+        raise SystemExit("headline_exact: frames not finite or blank")
+    if not ok:
+        raise SystemExit(f"headline_exact: card frame 0 disagrees with the "
+                         f"CPU (max {mx}, share {share})")
+    if same > 1e-6:
+        raise SystemExit(f"headline_exact: frame 0 retraced differs {same}")
+    if not all(g["finite"] for g in grad_batches):
+        raise SystemExit("headline_exact: gradient-shaded rays not finite")
+    return rec
+
+
+def contour_row(setups, device, width, height):
+    """``headline_contour``: the headline fast path (its grids, camera
+    and TF) with one contour plane through the centre, colored from the
+    exact scene the Renderer builds from the cells at first need."""
+    import dataclasses
+
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    grids, _, fs, _, meta = setups["headline"][:5]
+    n = 64
+    normals = np.zeros((3, 3), np.float32)
+    normals[0] = CONTOUR_NORMAL
+    fs = dataclasses.replace(
+        fs, contour_enabled=np.asarray([True, False, False]),
+        contour_normal=normals,
+        contour_offset=np.asarray([CONTOUR_OFFSET, 0.5, 0.5], np.float32),
+        contour_channel=np.zeros(3, np.int32))
+    lower, level, scal = volume_to_cells(synthetic_volume(n), 0.004, 3)
+    r = Renderer((lower, level, scal[None]), width, height,
+                 cfg=RenderConfig(num_channels=1), frame_state=fs,
+                 device=device)
+    r._grids_cache[2] = grids
+    r.enable_fast_path()
+    if r._fast[2] is not None:
+        raise SystemExit(f"headline_contour took {r._fast[2]!r}")
+    return dict(headline_contour=dict(renderer=r, n=n, meta=meta,
+                                      surf=None))
+
+
+def phase_blobs256_scene(device, card):
+    """``blobs256_scene``: the 256^3 bench scene built with the native
+    core and moved to the card (build s, scene MB), then one exact frame
+    at BLOBS256_EXACT_SIZE with the bench camera."""
+    import torch
+
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+
+    n = 256
+    w, h = BLOBS256_EXACT_SIZE
+    _, scene, cells, build_s, move_s = exact_scene(n, device)
+    fs = bench_frame_state(n, float(cells[2].max()), w, h)
+    r = Renderer(scene, w, h, cfg=RenderConfig(), frame_state=fs,
+                 device=device)
+    torch.cuda.reset_peak_memory_stats()
+    times, first = exact_frames(r, 1)
+    rec = dict(row="blobs256_scene", card=card,
+               cells=int(cells[0].shape[0]),
+               regions=int(scene.region_lo.shape[0]),
+               bricks=int(scene.brick_lower.shape[0]),
+               max_bricks_per_region=scene.max_bricks_per_region,
+               tree_depth=scene.tree_depth, scene_build_s=round(build_s, 3),
+               scene_to_card_s=round(move_s, 3),
+               scene_mb=round(scene.nbytes() / 1e6, 3),
+               exact_frame=[w, h], frames_ms=times,
+               peak_mem_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
+               lit_share=float((first > 0.05).any(-1).float().mean()))
+    log("exact path:", json.dumps(rec))
+    if not bool(torch.isfinite(r.accum).all()) or rec["lit_share"] < 0.05:
+        raise SystemExit("blobs256_scene: frame not finite or blank")
+    return rec
+
+
 def profile_once(fn, trace_path=None):
     """One ``fn()`` (ending in a synchronize) under torch.profiler:
     (device ms, device launches, the port's kernels' {id: (ms, n)}, the
@@ -2010,6 +2382,23 @@ def main() -> int:
     k1 += phase_surface_checks(surf_rows, surf_frames, card, dev)
     del surf_rows, surf_frames
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # the exact path: goldens, headline_exact (no port kernel runs
+    # there), the fast path's contour plane, and the 256^3 scene
+    phase_exact_goldens(dev, card)
+    phase_headline_exact(dev, card)
+    c_rows = contour_row(setups, dev, width, height)
+    reset_launch_counts()
+    c_frames = phase_surface_rows(c_rows, card)
+    contour = launch_counts()
+    log("launches on the contour path:", json.dumps(contour))
+    if min(contour[k] for k in ("K1", "K6")) <= 0:
+        raise SystemExit(f"the contour path left a kernel unlaunched: "
+                         f"{contour}")
+    k1 += phase_surface_checks(c_rows, c_frames, card, dev)
+    del c_rows, c_frames
+    phase_blobs256_scene(dev, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
         # no Chrome traces: a 1080p einsum-lane frame's is tens of MB
@@ -2028,7 +2417,7 @@ def main() -> int:
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
     src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
     launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k] + surf[k]
-                for k in aligned}
+                + contour[k] for k in aligned}
 
     def entry(name, source, replaces, key, err, res, prefix=""):
         # one PyTorch call computes K5's and K6's functions (grid_sample),

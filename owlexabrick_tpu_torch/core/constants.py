@@ -19,3 +19,16 @@ TERMINATION_THRESHOLD = 0.98
 
 # primitive-ID code of a streamline hit (programs/exabrick.cu:31-38)
 PRIMID_STREAMLINE = -25
+
+# poison value marking an empty cell (only used in ALLOW_EMPTY_CELLS mode)
+EMPTY_CELL_POISON_VALUE = -1e20
+
+# multiplicative epsilon used to advance past a region's exit distance
+REGION_ADVANCE_EPS = 1.0000001
+
+# sentinel position marking a dead particle trace
+TRACE_DEAD = 2e10
+
+# primitive-ID codes of contour-plane and iso-surface hits
+PRIMID_PLANE = -24
+PRIMID_ISOSURFACE = -23

@@ -1,7 +1,7 @@
 """Carry state over from the JAX package.
 
-The reference's ``LevelGrids``, ``FrameState``, ``ShearWarp`` and
-``SurfaceData`` fields, read as numpy arrays, become the port's objects,
+The reference's ``Scene``, ``LevelGrids``, ``FrameState``, ``ShearWarp``
+and ``SurfaceData`` fields, read as numpy arrays, become the port's objects,
 so tests can run both packages from the same state (the renderer's
 analog of loading a reference model's weights).  Works on the
 reference objects without importing ``jax``: every field is read
@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.types import Scene
 from .render.camera import Camera
 from .render.frame import FrameState
 from .render.shearwarp import ShearWarp
@@ -83,3 +84,14 @@ def surface_data_from_reference(ref, device="cuda") -> SurfaceData:
         *(np.asarray(getattr(ref, k)) for k in (
             "tri_v0", "tri_e1", "tri_e2", "tri_n", "seg_a", "seg_b",
             "seg_t", "seg_radius")), device=device)
+
+
+def scene_from_reference(ref, device="cuda") -> Scene:
+    """The reference's exact ``Scene`` (bricks, scalars, regions, BSP
+    tree, bounds) as the port's, on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    return Scene.from_arrays(render_device(device), **{
+        f.name: getattr(ref, f.name) if f.name in (
+            "num_channels", "max_bricks_per_region", "tree_depth")
+        else np.asarray(getattr(ref, f.name))
+        for f in dataclasses.fields(Scene)})

@@ -1,1 +1,4 @@
-"""Slab-sweep DVR: camera, transfer function, frame state, level grids, the sweep stage and its CUDA kernel's wrapper, the renderer (PyTorch port)."""
+"""Rendering: camera, transfer function, frame state, the exact region
+march and iso march, the level grids and the slab sweep with its CUDA
+kernels' wrappers, surfaces, the tracer and the renderer (PyTorch
+port)."""

@@ -1,45 +1,60 @@
-"""High-level renderer, DVR on the slab fast path (the port of the fast
-path of ``owlexabrick_tpu/render/renderer.py``): owns the level grids,
-the surfaces, the frame state and the accumulation buffer, and renders
-progressive frames through ``render_slabs_camera``: an axis-aligned
-camera directly, any other camera through shear-warp (an axis-aligned
-lattice camera plus the two-pass warp), and a frustum no axis can
-factorize through the ``reorient_grids`` preview.  The clip box
+"""High-level renderer (the port of ``owlexabrick_tpu/render/renderer.py``):
+owns the exact scene or the cells, the level grids, the surfaces, the
+frame state and the accumulation buffer, and renders progressive frames.
+
+Without ``enable_fast_path()`` a frame is the exact one (``render_step``,
+the JAX package's default frame): jittered per-pixel rays, the surface
+pass (meshes, streamlines, contour planes, the exact iso march and their
+AO, ``surfaces.trace_surface_pass``), the clip box, the region march
+(``dvr.trace_dvr``) and accumulation.
+
+``enable_fast_path()`` switches to the slab sweep (``render_slabs_camera``):
+an axis-aligned camera directly, any other through shear-warp (an
+axis-aligned lattice camera plus the two-pass warp), and a frustum no
+axis can factorize through the ``reorient_grids`` preview.  The clip box
 (``set_clip_box``) and DVR gradient shading
 (``RenderConfig.gradient_shading_dvr``) take the sweep's einsum lane;
 the clip box becomes a per-pixel sweep interval (``clip_interval``).
 Iso surfaces (``RenderConfig.iso_surfaces``, ``update_iso_values``)
 take the iso sweep (``render_slabs_iso_camera``): its shaded hits are
 the background and its hit depth stops the volume (K1's surface stop).
-Meshes and streamline segments (``surfaces=``) are traced on the
-sweep's own rays (``surfaces.trace_surface_pass``, with its dense
-geometric AO): the nearest of them and the iso hits is the background
-and stops the volume.  AO over gradient-shaded iso hits takes the
-lattice estimator (``ao_sweep.ao_shadow_fast``), alone (``ao_fast``) or
-OR-ed with the geometric occluders (``ao_combined``).
+Meshes, streamline segments (``surfaces=``) and contour planes
+(``update_contour_planes``) are traced on the sweep's own rays
+(``surfaces.trace_surface_pass``, with its dense geometric AO): the
+nearest of them and the iso hits is the background and stops the
+volume.  AO over gradient-shaded iso hits takes the lattice estimator
+(``ao_sweep.ao_shadow_fast``), alone (``ao_fast``) or OR-ed with the
+geometric occluders (``ao_combined``), or with ``ao_exact`` hemisphere
+rays against the exact surfaces (``_ao_shadow_exact``).
 
-Not ported yet (each raises NotImplementedError): contour planes and
-``ao_exact``, which sample the exact scene, and the exact wavefront
-path itself.
+A Renderer is made from a ``Scene`` (the JAX signature) or from cells;
+a cells-built one builds its scene at first need (the exact frame, a
+contour plane, ``ao_exact``) through ``pipeline.scene_from_cells``, and
+its fast-path grids straight from the cells.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core.types import Scene
+from ..pipeline import scene_from_cells
 from . import prng
 from .ao_sweep import ao_shadow_fast, build_ao_lattice, lattice_to
 from .camera import Camera
-from .dvr import accumulate, composite_background, pack_rgba8, ray_box
+from .dvr import (RenderConfig, _dot3, accumulate, composite_background,
+                  generate_rays, pack_rgba8, ray_box, trace_dvr)
 from .frame import FrameState, make_frame_state, with_camera
 from .shearwarp import inter_dims, setup_shearwarp, warp_image
 from .slabs import (
     SlabConfig,
+    _sqrt_rn,
+    build_level_grids,
     camera_to_voxel,
     check_separable,
     level_grids_from_cells,
@@ -50,29 +65,13 @@ from .slabs import (
     render_slabs_iso_camera,
     reorient_grids,
 )
-from .surfaces import SurfaceData, _nearest_surface, trace_surface_pass
-
-
-@dataclass(frozen=True)
-class RenderConfig:
-    """The fields of the JAX package's ``RenderConfig`` that the slab
-    fast path reads (same names and defaults)."""
-
-    num_channels: int = 1
-    gradient_shading_dvr: bool = False
-    gradient_shading_iso: bool = True
-    iso_surfaces: bool = False
-    ao_samples: int = 0
-    # fast-path AO only: candidate directions per frame of the lattice
-    # estimator (render/ao_sweep.py)
-    ao_dirs: int = 4
-    # secondary field that colormaps iso surfaces (LaunchParams.h:59-60)
-    colormap_channel: int = 0
-    # adaptive z-stride on the slab fast path (exabrick.cu:1129)
-    adaptive_stride: bool = True
+from .scene import scene_bricks
+from .surfaces import SurfaceData, _nearest_surface, _onb, trace_surface_pass
 
 
 JITTER_SEED = 0x51AB
+# the exact frame's seed (the JAX package's render_step)
+EXACT_SEED = 0x9E3779B9
 
 
 def default_jitter(frame_id: int) -> Tuple[float, float]:
@@ -86,6 +85,11 @@ def default_jitter(frame_id: int) -> Tuple[float, float]:
 
 def _f32s(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
+                           min=1e-20)
 
 
 def _full(p: int, v, dev) -> torch.Tensor:
@@ -152,23 +156,62 @@ def clip_interval(axis: int, cam: Camera, lattice, width: int, height: int,
     return t_start, t_stop
 
 
+def render_step(scene, fs: FrameState, surf: SurfaceData, accum, *,
+                cfg: RenderConfig, width: int, height: int):
+    """One progressive exact frame (the JAX package's ``render_step``):
+    jittered rays -> surfaces -> clip box -> DVR -> background composite
+    -> accumulation, on the scene's device.  Returns (new_accum (P, 4),
+    RGBA8 words (P,) int64, display color (P, 3))."""
+    dev = scene.device
+    p = width * height
+    key = prng.fold_in(prng.prng_key(EXACT_SEED), int(fs.frame_id))
+    jitter = prng.uniform(prng.fold_in(key, 1), (p, 2), dev)
+    offset = prng.uniform(prng.fold_in(key, 2), (p,), dev)
+    o, d = generate_rays(fs, width, height, jitter, dev)
+    # surface pass: meshes, contour planes, iso surfaces
+    # (exabrick.cu:1475-1529)
+    t_hit, bg = trace_surface_pass(scene, fs, surf, cfg, o, d,
+                                   prng.fold_in(key, 3),
+                                   screen=(width, height))
+    # the clip box shrinks the volume interval (clipRay,
+    # exabrick.cu:1258-1264)
+    if bool(fs.clip_enabled):
+        chit, c0, c1 = ray_box(o, d, _f32s(fs.clip_lo, dev),
+                               _f32s(fs.clip_hi, dev),
+                               torch.zeros(p, dtype=torch.float32,
+                                           device=dev), t_hit)
+        t_start = torch.where(chit, c0, float("inf"))
+        t_end = torch.where(chit, c1, 0.0)
+    else:
+        t_start, t_end = torch.zeros_like(t_hit), t_hit
+    rgba = trace_dvr(scene, fs, cfg, o, d, offset, t_end_world=t_end,
+                     t_start_world=t_start)
+    color = composite_background(rgba, bg)
+    new_accum, shown = accumulate(color, accum, int(fs.frame_id))
+    return new_accum, pack_rgba8(shown), shown
+
+
 class Renderer:
-    """Progressive renderer of cell data on one device.
+    """Progressive renderer on one device.
 
-    cells: (lower (N, 3) int, level (N,), scalars (C, N) or [(N,)] * C).
-    jitter: ``frame_id -> (jx, jy)``, the per-frame sub-pixel shift
-    (default: ``default_jitter``).  surfaces: meshes and streamline
-    segments (``SurfaceData`` on ``device``), or None for none."""
+    ``source``: an exact ``Scene`` (any device; the Renderer keeps a copy
+    on ``device``), or cells: (lower (N, 3) int, level (N,), scalars
+    (C, N) or [(N,)] * C), with their ``voxel_from_world`` (identity when
+    None; a Scene carries its own).  jitter: ``frame_id -> (jx, jy)``, the
+    fast path's per-frame sub-pixel shift (default: ``default_jitter``).
+    surfaces: meshes and streamline segments (``SurfaceData`` on
+    ``device``), or None for none."""
 
-    # the JAX Renderer's exact AO switch; its estimator marches the exact
-    # scene, which is not ported (setting it makes AO frames raise)
+    # exact AO: over iso hits on the fast path, hemisphere rays against
+    # the exact surfaces (_ao_shadow_exact) instead of the lattice
+    # estimator
     ao_exact = False
     # run the plain-torch twins of every kernel on the card (the
     # comparison lane, SlabConfig.plain_sweep); read where the slab
     # config is built (enable_fast_path, and each shear-warp frame)
     plain_kernels = False
 
-    def __init__(self, cells, width: int = 1024, height: int = 1024,
+    def __init__(self, source, width: int = 1024, height: int = 1024,
                  cfg: Optional[RenderConfig] = None,
                  frame_state: Optional[FrameState] = None,
                  voxel_from_world=None, device="cuda",
@@ -177,22 +220,32 @@ class Renderer:
         self.device = render_device(device)
         self.surf = (surfaces if surfaces is not None
                      else SurfaceData.empty(self.device))
-        lower, level, scalars = cells
-        self._lower = np.asarray(lower)
-        self._level = np.asarray(level)
-        self._scalars = np.asarray(scalars, np.float32).reshape(
-            -1, self._lower.shape[0])
-        if voxel_from_world is None:
-            voxel_from_world = np.zeros((3, 4), np.float32)
-            voxel_from_world[:, :3] = np.eye(3)
-        self.voxel_from_world = np.asarray(voxel_from_world, np.float32)
-        cw = (1 << self._level.astype(np.int64)).astype(np.float32)
-        v_lo = self._lower.astype(np.float32).min(0)
-        v_hi = (self._lower.astype(np.float32) + cw[:, None]).max(0)
-        m = np.asarray(voxel_from_world, np.float64)
-        inv_a = np.linalg.inv(m[:, :3])
-        self.world_bounds_lo = (inv_a @ (v_lo - m[:, 3])).astype(np.float32)
-        self.world_bounds_hi = (inv_a @ (v_hi - m[:, 3])).astype(np.float32)
+        if isinstance(source, Scene):
+            self._lower = None  # no cells: grids come from the scene
+            self._scene = source.to(self.device)
+            self.voxel_from_world = source.voxel_from_world.cpu().numpy()
+            self.world_bounds_lo = source.world_bounds_lo.cpu().numpy()
+            self.world_bounds_hi = source.world_bounds_hi.cpu().numpy()
+        else:
+            self._scene = None
+            lower, level, scalars = source
+            self._lower = np.asarray(lower)
+            self._level = np.asarray(level)
+            self._scalars = np.asarray(scalars, np.float32).reshape(
+                -1, self._lower.shape[0])
+            if voxel_from_world is None:
+                voxel_from_world = np.zeros((3, 4), np.float32)
+                voxel_from_world[:, :3] = np.eye(3)
+            self.voxel_from_world = np.asarray(voxel_from_world, np.float32)
+            cw = (1 << self._level.astype(np.int64)).astype(np.float32)
+            v_lo = self._lower.astype(np.float32).min(0)
+            v_hi = (self._lower.astype(np.float32) + cw[:, None]).max(0)
+            m = np.asarray(voxel_from_world, np.float64)
+            inv_a = np.linalg.inv(m[:, :3])
+            self.world_bounds_lo = (inv_a @ (v_lo - m[:, 3])).astype(
+                np.float32)
+            self.world_bounds_hi = (inv_a @ (v_hi - m[:, 3])).astype(
+                np.float32)
         self.width = width
         self.height = height
         self.cfg = cfg or RenderConfig(num_channels=1)
@@ -215,6 +268,18 @@ class Renderer:
         self._last_pose = None
         self._last_pose_grids = None
         self.reset_accumulation()
+
+    @property
+    def scene(self) -> Scene:
+        """The exact scene on the render device: the one given, or (a
+        cells-built Renderer) built at first use through
+        ``pipeline.scene_from_cells`` with the native core."""
+        if self._scene is None:
+            self._scene = scene_from_cells(
+                self._lower, self._level, list(self._scalars),
+                voxel_from_world=self.voxel_from_world,
+                device=self.device)[0]
+        return self._scene
 
     # -- state updates (each resets accumulation, exa/viewer.cpp:257-260)
     def reset_accumulation(self):
@@ -249,6 +314,19 @@ class Renderer:
             iso_enabled=np.asarray(enabled, bool))
         self.reset_accumulation()
 
+    def update_contour_planes(self, normals, offsets, channels, enabled):
+        """Contour planes: unit ``normals`` (3, 3) (normalized here),
+        ``offsets`` fractional in the world bounds box, the ``channels``
+        that color them, and which are ``enabled``."""
+        n = np.asarray(normals, np.float32)
+        n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+        self.fs = dataclasses.replace(
+            self.fs, contour_normal=n,
+            contour_offset=np.asarray(offsets, np.float32),
+            contour_channel=np.asarray(channels, np.int32),
+            contour_enabled=np.asarray(enabled, bool))
+        self.reset_accumulation()
+
     def set_clip_box(self, enabled: bool, lo=None, hi=None):
         """Enable or disable the world-space clip box [lo, hi] (each
         kept when None)."""
@@ -278,11 +356,18 @@ class Renderer:
                       dir_dv=np.asarray(self.fs.cam_dv))
 
     def _grids_for(self, axis: int):
-        """Level grids for a sweep axis, built once per axis."""
+        """Level grids for a sweep axis, built once per axis: from the
+        scene's bricks (the JAX package's ``grids_from_scene``) or from
+        the cells."""
         if axis not in self._grids_cache:
-            self._grids_cache[axis] = level_grids_from_cells(
-                self._lower, self._level, self._scalars, axis=axis,
-                device=self.device)
+            if self._lower is not None:
+                grids = level_grids_from_cells(
+                    self._lower, self._level, self._scalars, axis=axis,
+                    device=self.device)
+            else:
+                grids = build_level_grids(*scene_bricks(self._scene),
+                                          axis=axis, device=self.device)
+            self._grids_cache[axis] = grids
         return self._grids_cache[axis]
 
     def _ao_modes(self):
@@ -297,18 +382,6 @@ class Renderer:
         fast = (cfg.ao_samples > 0 and cfg.iso_surfaces
                 and cfg.gradient_shading_iso and not combined)
         return combined, fast
-
-    def _check_supported(self):
-        """Raise on what needs the exact scene, which the port does not
-        have yet: an enabled contour plane (the surface pass colors it by
-        sampling the scene) and ``ao_exact`` on a frame with AO (its
-        hemisphere rays march the exact iso surfaces)."""
-        if bool(np.any(self.fs.contour_enabled)):
-            raise NotImplementedError("contour planes need the exact "
-                                      "scene, which is not ported yet")
-        if self.ao_exact and any(self._ao_modes()):
-            raise NotImplementedError("ao_exact needs the exact iso "
-                                      "march, which is not ported yet")
 
     def _ao_lattice_dev(self):
         """The finest-lattice AO field of the axis-2 level grids, built
@@ -343,7 +416,6 @@ class Renderer:
         directly, any other through shear-warp, and a frustum that no
         axis can factorize through the reorientation preview.  Returns
         True when active."""
-        self._check_supported()
         cam = camera_to_voxel(self._camera_from_fs(), self.voxel_from_world)
         view = np.asarray(cam.dir00) + 0.5 * (
             self.width * np.asarray(cam.dir_du)
@@ -396,9 +468,9 @@ class Renderer:
     def _surfaces_and_iso(self, grids, scfg, cam, lattice, rw: int,
                           rh: int):
         """The frame's surfaces on the sweep's own rays (the JAX
-        Renderer's _render_fast, renderer.py:532-817): meshes and
-        streamlines (traceSurfaces, exabrick.cu:1475-1529), the iso
-        sweep, AO, and the clip box.  Returns (bg (3,) or (P, 3), t_start,
+        Renderer's _render_fast, renderer.py:532-817): meshes,
+        streamlines and contour planes (traceSurfaces,
+        exabrick.cu:1475-1529), the iso sweep, AO, and the clip box.  Returns (bg (3,) or (P, 3), t_start,
         t_stop): the shaded background and the volume's sweep interval
         (None: unbounded)."""
         fs, cfg, surf, dev = self.fs, self.cfg, self.surf, self.device
@@ -406,7 +478,11 @@ class Renderer:
         key = prng.fold_in(prng.prng_key(JITTER_SEED), int(fs.frame_id))
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
         t_start = t_stop = t_surf = geom = None
-        need_surf = surf.num_tris > 0 or surf.num_segments > 0
+        contours = bool(np.any(fs.contour_enabled))
+        need_surf = surf.num_tris > 0 or surf.num_segments > 0 or contours
+        # the exact scene colors the contour planes (and marches the iso
+        # surfaces for their AO rays)
+        scene = self.scene if contours else None
         clip = bool(fs.clip_enabled)
         ao_combined, ao_fast = self._ao_modes()
         if need_surf or clip or ao_fast or ao_combined:
@@ -417,9 +493,9 @@ class Renderer:
         if need_surf and ao_combined:
             # shading waits for the combined AO shadow below
             t_g, n_w_g, base_g, amb_g, _ = _nearest_surface(
-                fs, surf, cfg, o_w, d_unit, _full(p, 1e-6, dev),
+                scene, fs, surf, cfg, o_w, d_unit, _full(p, 1e-6, dev),
                 _full(p, 2e10, dev),
-                include_contours=False, include_iso=False,
+                include_contours=contours, include_iso=False,
                 current_timestep=fs.tracer_timestep, screen=(rw, rh))
             t_w = torch.where(torch.isfinite(t_g), t_g, 2e10)
             geom = (t_w / rnorm, n_w_g, base_g, amb_g)
@@ -427,8 +503,9 @@ class Renderer:
             bg = torch.zeros((p, 3), dtype=torch.float32, device=dev)
         elif need_surf:
             t_w, bg = trace_surface_pass(
-                fs, surf, cfg, o_w, d_unit, prng.fold_in(key, 3),
-                include_iso=False, include_contours=False, screen=(rw, rh))
+                scene, fs, surf, cfg, o_w, d_unit, prng.fold_in(key, 3),
+                include_iso=False, include_contours=contours,
+                screen=(rw, rh))
             t_surf = t_stop = t_w / rnorm  # world t -> sweep scale
 
         if cfg.iso_surfaces:
@@ -451,13 +528,20 @@ class Renderer:
                 shadow = torch.zeros(p, dtype=torch.float32, device=dev)
                 if ao_fast:
                     hit_w = o_w + (t_iso * rnorm)[:, None] * d_unit
-                    shadow = ao_shadow_fast(
-                        self._ao_lattice_dev(), fs,
-                        self._to_voxel(hit_w).flip(-1), n_vox.flip(-1),
-                        prng.fold_in(key, 7), ao_samples=cfg.ao_samples,
-                        ao_dirs=cfg.ao_dirs)
-                    if not bool(fs.ao_enabled):
-                        shadow = torch.zeros_like(shadow)
+                    if self.ao_exact:
+                        # hemisphere rays against the exact surfaces
+                        shadow = self._ao_shadow_exact(
+                            hit_w, _unit(n_vox @ _f32s(
+                                self.voxel_from_world[:, :3], dev)),
+                            prng.fold_in(key, 7), rw, rh)
+                    else:
+                        shadow = ao_shadow_fast(
+                            self._ao_lattice_dev(), fs,
+                            self._to_voxel(hit_w).flip(-1), n_vox.flip(-1),
+                            prng.fold_in(key, 7), ao_samples=cfg.ao_samples,
+                            ao_dirs=cfg.ao_dirs)
+                        if not bool(fs.ao_enabled):
+                            shadow = torch.zeros_like(shadow)
                 if cfg.gradient_shading_iso and not ao_combined:
                     iso_bg = torch.where(
                         has_n[:, None],
@@ -502,35 +586,35 @@ class Renderer:
         minv = _f32s(np.linalg.inv(
             np.asarray(self.voxel_from_world, np.float64)[:, :3]), dev)
 
-        def unit(v):
-            return v / torch.clamp(torch.linalg.norm(v, dim=-1,
-                                                     keepdim=True), min=1e-20)
-
         pos_w = o_w + (torch.minimum(t_iso, t_sw_g) * rnorm)[:, None] * d_unit
         # winner normals, world and voxel frames (row vectors: n_vox =
         # n_w @ inv(M), n_w = n_vox @ M)
         wins = iso_wins[:, None]
-        n_w_eff = torch.where(wins, unit(n_vox @ m3), n_w_g)
-        n_vox_eff = torch.where(wins, n_vox, unit(n_w_g @ minv))
+        n_w_eff = torch.where(wins, _unit(n_vox @ m3), n_w_g)
+        n_vox_eff = torch.where(wins, n_vox, _unit(n_w_g @ minv))
         origin = pos_w + n_w_eff * 1e-3
 
         def occ_geom(d_pix):
             # d_pix: (P, 3) grid zyx -> world direction
-            d_w = unit(d_pix.flip(-1) @ minv.T)
+            d_w = _unit(d_pix.flip(-1) @ minv.T)
             at = _nearest_surface(
-                fs, surf, cfg, origin, d_w, _full(p, 1e-4, dev),
+                None, fs, surf, cfg, origin, d_w, _full(p, 1e-4, dev),
                 _full(p, fs.ao_length, dev),
                 include_contours=False, include_iso=False,
                 current_timestep=fs.tracer_timestep, screen=(rw, rh))[0]
             return torch.isfinite(at).to(torch.float32)
 
-        shadow = ao_shadow_fast(
-            self._ao_lattice_dev(), fs, self._to_voxel(pos_w).flip(-1),
-            n_vox_eff.flip(-1), prng.fold_in(key, 7),
-            ao_samples=cfg.ao_samples, geom_occluder=occ_geom,
-            ao_dirs=cfg.ao_dirs)
-        if not bool(fs.ao_enabled):
-            shadow = torch.zeros_like(shadow)
+        if self.ao_exact:
+            shadow = self._ao_shadow_exact(pos_w, n_w_eff,
+                                           prng.fold_in(key, 7), rw, rh)
+        else:
+            shadow = ao_shadow_fast(
+                self._ao_lattice_dev(), fs, self._to_voxel(pos_w).flip(-1),
+                n_vox_eff.flip(-1), prng.fold_in(key, 7),
+                ao_samples=cfg.ao_samples, geom_occluder=occ_geom,
+                ao_dirs=cfg.ao_dirs)
+            if not bool(fs.ao_enabled):
+                shadow = torch.zeros_like(shadow)
         iso_shaded = iso_bg
         if cfg.gradient_shading_iso:
             iso_shaded = torch.where(
@@ -543,8 +627,40 @@ class Renderer:
                            torch.where(has_n_g[:, None], shade_g, base_g), 0.0)
         return torch.where(wins, iso_shaded, bg_g)
 
+    def _ao_shadow_exact(self, pos_w, n_w, key, rw: int, rh: int):
+        """Progressive exact AO (the JAX Renderer's, renderer.py:337-380):
+        ``cfg.ao_samples`` cosine-hemisphere rays per pixel per frame from
+        pos_w (P, 3) about the unit normals n_w, each tested against the
+        exact surfaces (meshes, streamlines and, with iso surfaces on,
+        the exact iso march) over [1e-4, ao_length] — the reference's
+        own estimator (exabrick.cu:1612-1645), amortized into the
+        progressive accumulation.  Returns the shadow (P,), 0 where
+        ``fs.ao_enabled`` is off."""
+        fs, cfg, dev = self.fs, self.cfg, pos_w.device
+        p = pos_w.shape[0]
+        u, v = _onb(n_w)
+        origin = pos_w + n_w * 1e-3
+        hits = torch.zeros(p, dtype=torch.float32, device=dev)
+        for s in range(cfg.ao_samples):
+            r = prng.uniform(prng.fold_in(key, s), (p, 2), dev)
+            rr = _sqrt_rn(r[:, 0])
+            theta = 2.0 * math.pi * r[:, 1]
+            dir_ = ((rr * torch.cos(theta))[:, None] * u
+                    + (rr * torch.sin(theta))[:, None] * v
+                    + _sqrt_rn(1.0 - r[:, 0])[:, None] * n_w)
+            dir_ = dir_ / torch.clamp(_sqrt_rn(_dot3(dir_, dir_)),
+                                      min=1e-20)[:, None]
+            at = _nearest_surface(
+                self.scene, fs, self.surf, cfg, origin, dir_,
+                _full(p, 1e-4, dev), _full(p, fs.ao_length, dev),
+                include_contours=False, include_iso=cfg.iso_surfaces,
+                current_timestep=fs.tracer_timestep, screen=(rw, rh))[0]
+            hits = hits + torch.isfinite(at).to(torch.float32)
+        if not bool(fs.ao_enabled):
+            return torch.zeros_like(hits)
+        return hits / cfg.ao_samples
+
     def _render_fast(self) -> np.ndarray:
-        self._check_supported()
         grids, scfg, cam_r = self._fast
         jx, jy = self._jitter(int(self.fs.frame_id))
         shear = None
@@ -612,12 +728,17 @@ class Renderer:
 
     # -- frame ----------------------------------------------------------
     def render(self) -> np.ndarray:
-        """Render one progressive frame; returns (H, W) uint32 RGBA8."""
-        if self._fast is None:
-            raise NotImplementedError(
-                "only the slab-sweep fast path is ported: call "
-                "enable_fast_path() first")
-        rgba8 = self._render_fast()
+        """Render one progressive frame (the fast path's once
+        ``enable_fast_path()`` ran, else the exact one); returns (H, W)
+        uint32 RGBA8."""
+        if self._fast is not None:
+            rgba8 = self._render_fast()
+        else:
+            self.accum, words, _ = render_step(
+                self.scene, self.fs, self.surf, self.accum, cfg=self.cfg,
+                width=self.width, height=self.height)
+            rgba8 = words.cpu().numpy().astype(np.uint32).reshape(
+                self.height, self.width)
         self.fs = dataclasses.replace(self.fs,
                                       frame_id=self.fs.frame_id + 1)
         return rgba8

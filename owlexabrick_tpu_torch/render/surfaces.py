@@ -1,11 +1,12 @@
-"""Surface passes on the slab fast path: triangle meshes, streamline
-segments, their shading and the dense geometric ambient occlusion (the
-port of ``owlexabrick_tpu/render/surfaces.py`` without its contour
-planes, which sample the exact scene).
+"""Surface passes: triangle meshes, streamline segments, contour planes
+and the exact iso surfaces, their shading and the dense ambient
+occlusion (the port of ``owlexabrick_tpu/render/surfaces.py``).
 
 Mirrors traceSurfaces (programs/exabrick.cu:1475-1529) and the raygen
 surface shading + AO (exabrick.cu:1596-1651), vectorized over the ray
-batch as torch ops.  Meshes are a brute-force triangle table; large ones
+batch as torch ops.  Contour planes are colored by sampling the exact
+scene at the hit (``dvr.locate_leaf`` + ``dvr.sample_basis``); iso
+surfaces are the exact iso march (``iso.trace_iso_rays``).  Meshes are a brute-force triangle table; large ones
 (``_nearest_surface``: >= 4096 triangles, or >= 2048 segments, and >=
 2048 rays, the JAX package's thresholds) take the tiled trace: rays in
 blocks of 256 (near-square screen tiles when the batch is a screen),
@@ -29,9 +30,12 @@ from typing import List
 import numpy as np
 import torch
 
-from ..core.constants import PRIMID_STREAMLINE
+from ..core.constants import (PRIMID_ISOSURFACE, PRIMID_PLANE,
+                              PRIMID_STREAMLINE)
 from ..core.types import TriangleMesh
 from . import prng
+from .dvr import XFTensors, _affine_rows, _dot3, locate_leaf, sample_basis
+from .iso import trace_iso_rays
 from .slabs import _sqrt_rn, render_device
 from .tracer import morton_order
 
@@ -573,18 +577,84 @@ trace_streamlines_tiled.work = {}
 # combined surface pass + shading + AO
 # ----------------------------------------------------------------------------
 
-def _nearest_surface(fs, surf: SurfaceData, cfg, o, d, tmin, tmax,
+# ----------------------------------------------------------------------------
+# contour planes (exabrick.cu:1267-1406)
+# ----------------------------------------------------------------------------
+
+def trace_contour_planes(scene, fs, cfg, o, d, tmin, tmax):
+    """Nearest enabled contour plane hit inside the world bounds box,
+    colored by the field there.  Returns (t (P,), color (P, 3), normal
+    (P, 3)); t inf where no plane is hit.
+
+    The reference clips the plane to the bounds box and intersects the
+    polygon; a hit point inside the box is the same test.  The plane's
+    offset is fractional in the bounds box (exabrick.cu:1356-1362):
+    dot(n, (p - lo) / span) = offset."""
+    p = o.shape[0]
+    dev = d.device
+    t_best = torch.full((p,), _INF, dtype=d.dtype, device=dev)
+    color = torch.zeros((p, 3), dtype=d.dtype, device=dev)
+    normal = torch.zeros((p, 3), dtype=d.dtype, device=dev)
+    w_lo, w_hi = scene.world_bounds_lo, scene.world_bounds_hi
+    span = w_hi - w_lo
+    xf = XFTensors.from_frame(fs, dev)
+    o = o.expand(p, 3)
+    for i in range(len(fs.contour_enabled)):
+        if not bool(fs.contour_enabled[i]):
+            continue
+        n = torch.as_tensor(np.asarray(fs.contour_normal[i], np.float32),
+                            device=dev)
+        ns = n / span
+        off = (torch.as_tensor(np.float32(fs.contour_offset[i]), device=dev)
+               + (ns[0] * w_lo[0] + ns[1] * w_lo[1] + ns[2] * w_lo[2]))
+        denom = _dot3(n[None], d)
+        nsd = _dot3(ns[None], d)
+        t = (off - _dot3(ns[None], o)) / torch.where(denom == 0, 1.0, nsd)
+        hitp = o + t[:, None] * d
+        inside = ((hitp >= w_lo) & (hitp <= w_hi)).all(-1)
+        ok = ((nsd != 0) & inside & (t >= tmin) & (t <= tmax)
+              & (t < t_best))
+        at = torch.nonzero(ok)[:, 0]
+        if at.numel() == 0:
+            continue
+        # the field at the hit colormaps the plane (samplePointWithInfRay,
+        # exabrick.cu:818-830: the value is used whether the sample is
+        # valid or not)
+        pv = _affine_rows(hitp[at], scene.voxel_from_world, True)
+        rid = scene.tree_leaf[locate_leaf(scene, pv)]
+        c = min(max(int(fs.contour_channel[i]), 0), cfg.num_channels - 1)
+        _, val = _sample_channel(scene, cfg, torch.clamp(rid, min=0), pv, c)
+        rgba = _lookup_channel(xf, cfg, c, val)
+        t_best[at] = t[at]
+        color[at] = rgba[:, :3]
+        normal[at] = n
+    return t_best, color, normal
+
+
+def _sample_channel(scene, cfg, rid, pos, channel: int):
+    """sample_basis of one channel (the JAX package's traced-index
+    switch; here the channel is a host int)."""
+    return sample_basis(scene, rid, pos, channel if cfg.num_channels > 1
+                        else 0)
+
+
+def _lookup_channel(xf: XFTensors, cfg, channel: int, value):
+    """The channel's transfer function at ``value`` (..., 4)."""
+    return xf.lookup(channel if cfg.num_channels > 1 else 0, value)
+
+
+# ----------------------------------------------------------------------------
+# combined surface pass + shading + AO
+# ----------------------------------------------------------------------------
+
+def _nearest_surface(scene, fs, surf: SurfaceData, cfg, o, d, tmin, tmax,
                      include_contours: bool, include_iso: bool,
                      current_timestep=None, screen=None):
-    """traceSurfaces: nearest hit among meshes and streamlines.  Returns
-    (t, normal, base_color, ambient, kind).  Contour planes (when one is
-    enabled) and the exact iso march sample the exact scene, which the
-    port does not have: asking for either raises."""
-    if include_contours and bool(np.any(fs.contour_enabled)):
-        raise NotImplementedError("contour planes need the exact scene, "
-                                  "which is not ported yet")
-    if include_iso and cfg.iso_surfaces:
-        raise NotImplementedError("the exact iso march is not ported yet")
+    """traceSurfaces: nearest hit among meshes, contour planes,
+    streamlines and iso surfaces.  Returns (t, normal, base_color,
+    ambient, kind).  ``scene`` (the exact scene) is read only for
+    contour planes and iso surfaces: None will do where neither is
+    asked for."""
     p = o.shape[0]
     dev = o.device
     t = torch.full((p,), _INF, dtype=o.dtype, device=dev)
@@ -604,6 +674,15 @@ def _nearest_surface(fs, surf: SurfaceData, cfg, o, d, tmin, tmax,
     ambient = torch.where(win, 0.2, ambient)
     kind = torch.where(win, 0, kind)
 
+    if include_contours and bool(np.any(fs.contour_enabled)):
+        ct, cc, cn = trace_contour_planes(scene, fs, cfg, o, d, tmin, tmax)
+        win = ct < t
+        t = torch.where(win, ct, t)
+        normal = torch.where(win[:, None], cn, normal)
+        base = torch.where(win[:, None], cc, base)
+        ambient = torch.where(win, 0.0, ambient)
+        kind = torch.where(win, PRIMID_PLANE, kind)
+
     if surf.num_segments > 0:
         # default: every segment visible (a live tracer animates by
         # passing its current timestep)
@@ -620,6 +699,15 @@ def _nearest_surface(fs, surf: SurfaceData, cfg, o, d, tmin, tmax,
             [0.8, 0.2, 0.1], dtype=o.dtype, device=dev), base)
         ambient = torch.where(win, 0.2, ambient)
         kind = torch.where(win, PRIMID_STREAMLINE, kind)
+
+    if include_iso and cfg.iso_surfaces:
+        it, in_, ic = trace_iso_rays(scene, fs, cfg, o, d, tmin, tmax)
+        win = it < t
+        t = torch.where(win, it, t)
+        normal = torch.where(win[:, None], in_, normal)
+        base = torch.where(win[:, None], ic, base)
+        ambient = torch.where(win, 0.0, ambient)
+        kind = torch.where(win, PRIMID_ISOSURFACE, kind)
     return t, normal, base, ambient, kind
 
 
@@ -635,22 +723,25 @@ def _onb(w):
     return u, v
 
 
-def trace_surface_pass(fs, surf: SurfaceData, cfg, o, d, key,
+def trace_surface_pass(scene, fs, surf: SurfaceData, cfg, o, d, key,
                        include_iso: bool = True,
                        include_contours: bool = True, screen=None):
     """Full surface pass of the raygen program: nearest surface, AO,
     shaded background color.  ``key``: a ``prng`` key (the frame's).
     Returns (t_hit (P,), bg (P, 3)), 2e10 where nothing is hit.
+    ``include_iso=False`` leaves implicit iso surfaces to the caller
+    (the slab fast path sweeps them).
 
     AO: ``cfg.ao_samples`` cosine-weighted hemisphere rays per pixel
-    against everything but the contour planes (exabrick.cu:1612-1645),
-    gated by ``fs.ao_enabled``."""
+    against everything but the contour planes, the exact iso surfaces
+    included when ``cfg.iso_surfaces`` (exabrick.cu:1612-1645), gated by
+    ``fs.ao_enabled``."""
     p = o.shape[0]
     dev = o.device
     tmin = torch.full((p,), 1e-6, dtype=o.dtype, device=dev)
     tmax = torch.full((p,), 2e10, dtype=o.dtype, device=dev)
     t, n, base, ambient, _ = _nearest_surface(
-        fs, surf, cfg, o, d, tmin, tmax, screen=screen,
+        scene, fs, surf, cfg, o, d, tmin, tmax, screen=screen,
         include_contours=include_contours, include_iso=include_iso,
         current_timestep=getattr(fs, "tracer_timestep", None))
     hit = torch.isfinite(t)
@@ -671,7 +762,7 @@ def trace_surface_pass(fs, surf: SurfaceData, cfg, o, d, key,
             dir_ = dir_ / torch.clamp(_norm(dir_.unbind(-1)),
                                       min=1e-20)[:, None]
             at = _nearest_surface(
-                fs, surf, cfg, isect, dir_,
+                scene, fs, surf, cfg, isect, dir_,
                 torch.full((p,), 1e-4, dtype=o.dtype, device=dev),
                 torch.full((p,), float(np.float32(fs.ao_length)),
                            dtype=o.dtype, device=dev),

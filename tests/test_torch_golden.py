@@ -14,6 +14,7 @@ from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
 from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
 
 from test_golden_images import H, N, W, _check
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -61,18 +62,20 @@ def test_renderer_static_pose_uses_camera_cache(cells, tilted):
 
 
 def test_renderer_unported_features_raise(cells):
-    """Contour planes and ``ao_exact`` (the exact scene) still raise; AO
-    on gradient-shaded iso hits (the lattice estimator) and AO where the
-    JAX fast path draws no AO term render, the clip box and DVR gradient
-    shading render (the einsum lane), and so do iso surfaces (the iso
-    sweep, then K1 with its surface stop)."""
+    """Nothing the fast path offers raises any more: a contour plane
+    (colored from the exact scene, which a cells-built Renderer builds
+    at first need) and ``ao_exact`` (hemisphere rays against the exact
+    iso march) render, and so do AO on gradient-shaded iso hits (the
+    lattice estimator), AO where the JAX fast path draws no AO term,
+    the clip box and DVR gradient shading (the einsum lane), and iso
+    surfaces (the iso sweep, then K1 with its surface stop)."""
     import dataclasses
 
     r = _renderer(cells, False)
     r.fs = dataclasses.replace(r.fs, contour_enabled=np.asarray(
         [True, False, False]))
-    with pytest.raises(NotImplementedError):
-        r.render()
+    assert (r.image_uint8(r.render())[..., :3] > 16).any()
+    assert r._scene is not None
     r = Renderer(cells, W, H, cfg=RenderConfig(iso_surfaces=True,
                                                ao_samples=4),
                  frame_state=dataclasses.replace(
@@ -80,10 +83,12 @@ def test_renderer_unported_features_raise(cells):
                  device="cpu")
     r.update_iso_values([0.55, 0.0], [0, 0], [True, False])
     assert r.enable_fast_path()
-    assert (r.image_uint8(r.render())[..., :3] > 16).any()
+    lattice = r.image_uint8(r.render())
+    assert (lattice[..., :3] > 16).any()
     r.ao_exact = True
-    with pytest.raises(NotImplementedError):
-        r.render()
+    r.reset_accumulation()
+    exact = r.image_uint8(r.render())
+    assert (exact[..., :3] > 16).any() and not np.array_equal(exact, lattice)
     r = _renderer(cells, False)
     r.fs = dataclasses.replace(r.fs, ao_enabled=np.bool_(True))
     assert (r.image_uint8(r.render())[..., :3] > 16).any()

@@ -4,7 +4,8 @@ Renderer's next frames, and every AO setting that leaves the JAX fast
 path's image without AO renders here too, under the golden gate (every
 pixel within 1/255, >= 99% bit-exact), on the 32^3 golden scene at
 64x48 with the default (JAX) jitter.  What needs the exact scene
-(contour planes, ``ao_exact``) raises."""
+(contour planes, ``ao_exact``) renders the JAX Renderer's image too: the
+cells-built port Renderer builds its scene at first need."""
 
 import dataclasses
 
@@ -19,6 +20,7 @@ from owlexabrick_tpu.render.renderer import Renderer as RefRenderer
 from owlexabrick_tpu_torch import bench_scene, interop
 from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
 from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, W, H = 32, 64, 48
 ISO = 0.55
@@ -91,31 +93,20 @@ def test_ao_settings_without_shading_match_jax(cells, case):
 @pytest.mark.parametrize("feature", ["contour_plane", "ao_exact"])
 def test_exact_scene_features_raise(cells, feature):
     """An enabled contour plane and ``ao_exact`` on a frame with AO sample
-    the exact scene, which is not ported: enabling the fast path or
-    rendering raises; without them the fast path enables (the AO frames
-    themselves: tests/test_torch_renderer_surfaces.py)."""
-    lower, level, scal = cells
-    r = Renderer((lower, level, scal[None]), W, H,
-                 cfg=RenderConfig(num_channels=1, iso_surfaces=True,
-                                  ao_samples=2), device="cpu")
-    r.update_iso_values([ISO, 0.0], [0, 0], [True, False])
-    _set_ao(r, True)
-
-    def turn(on):
+    the exact scene: they no longer raise.  With either on, the fast
+    path enables and renders the JAX Renderer's frame under the golden
+    gate; the port's cells-built Renderer builds its scene for it."""
+    ref, port = _pair(cells, ao_enabled=True, iso=True, ao_samples=2)
+    assert port._scene is None
+    for r in (ref, port):
         if feature == "contour_plane":
             r.fs = dataclasses.replace(r.fs, contour_enabled=np.asarray(
-                [on, False, False]))
+                [True, False, False]))
         else:
-            r.ao_exact = on
-
-    turn(True)
-    with pytest.raises(NotImplementedError):
-        r.enable_fast_path()
-    turn(False)
-    assert r.enable_fast_path()
-    turn(True)
-    with pytest.raises(NotImplementedError):
-        r.render()
+            r.ao_exact = True
+        assert r.enable_fast_path()
+    _gate(ref, port)
+    assert port._scene is not None
 
 
 def test_update_dt_matches_jax(cells):

@@ -253,7 +253,7 @@ def test_surface_pass_with_geometric_ao_matches_jax(meshes):
 
     def port_pass(ao_samples):
         return P.trace_surface_pass(
-            pfs, port, RenderConfig(num_channels=1, ao_samples=ao_samples),
+            None, pfs, port, RenderConfig(num_channels=1, ao_samples=ao_samples),
             _t(o), _t(d), pkey, include_iso=False, include_contours=False,
             screen=(64, 48))
 
