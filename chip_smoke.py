@@ -2201,6 +2201,281 @@ def phase_blobs256_scene(device, card):
     return rec
 
 
+def _cli(argv):
+    """One in-process run of the port's offline CLI; returns its stdout
+    lines (echoed to the log) and the ms per frame it printed."""
+    import contextlib
+    import io
+
+    from owlexabrick_tpu_torch.viewer.offline import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log("  " + line)
+    if rc != 0:
+        raise SystemExit(f"cli_exajet256: the CLI returned {rc}")
+    return lines, _cli_ms(lines)
+
+
+def _cli_ms(lines):
+    import re
+
+    for line in lines:
+        m = (re.search(r"fast path [0-9.]+ FPS \(([0-9.]+) ms\)", line)
+             or re.search(r"\(([0-9.]+) ms/frame\)", line))
+        if m:
+            return float(m.group(1))
+    raise SystemExit(f"cli_exajet256: no frame time in {lines}")
+
+
+def _srgb_u8(rgba, width, height):
+    """A (P, 4) linear frame as the CLI's --fast PNG: sRGB, 8 bits, rows
+    top down."""
+    from owlexabrick_tpu_torch.render.dvr import linear_to_srgb
+
+    srgb = linear_to_srgb(rgba.reshape(height, width, 4)[..., :3])
+    return np.clip(srgb.cpu().numpy() * 255, 0, 255).astype(np.uint8)[::-1]
+
+
+def _gate(name, img, want):
+    from owlexabrick_tpu_torch.utils.png import golden_gate
+
+    ok, mx, exact = golden_gate(img, want)
+    log(f"cli_exajet256 {name}: max_diff={mx} exact={exact:.4f} "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok or not (img[..., :3] > 16).any():
+        raise SystemExit(f"cli_exajet256: {name} failed the golden gate")
+    return dict(max_diff=mx, exact=round(exact, 5))
+
+
+def _full_scene_golden(work, device):
+    """tests/test_end_to_end.py's full-scene CLI golden (artificial ->
+    builder CLI -> an expression field, a mesh, iso, a contour plane and
+    the tracer; 48x36) through the port's tools and CLI on the card."""
+    from owlexabrick_tpu_torch.builder.__main__ import main as build_main
+    from owlexabrick_tpu_torch.core.types import TriangleMesh
+    from owlexabrick_tpu_torch.io import formats
+    from owlexabrick_tpu_torch.tools.artificial import generate
+    from owlexabrick_tpu_torch.utils.png import read_png
+
+    d = work / "full_scene"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "two.grids").write_text("0 0 0 6 6 6 0 0 1 2 3 4 5 6 7\n"
+                                 "6 0 0 2 2 2 1 4\n")
+    generate(str(d / "two.grids"), str(d / "d"))
+    if build_main([str(d / "d.cells"), "-o", str(d / "d.bricks")]) != 0:
+        raise SystemExit("cli_exajet256: the full scene's builder failed")
+    dens = formats.read_scalars(str(d / "d.scalars"))
+    formats.write_scalars(str(d / "inv.scalars"), 7.0 - dens)
+    v = np.asarray([[0.5, 0.5, 5.5], [7.5, 0.5, 4.5], [7.5, 7.5, 4.5],
+                    [0.5, 7.5, 5.5]], np.float32)
+    formats.write_tris(str(d / "m.tris"), [TriangleMesh(
+        vertices=v, indices=np.asarray([[0, 1, 2], [0, 2, 3]], np.int32))])
+    (d / "scene.exa").write_text(
+        "bricks d.bricks\nscalar density d.scalars\nvalue_range 0 7\n"
+        "scalar inv inv.scalars\nvalue_range 0 7\n"
+        'scalar combo expr "%0 %1 +"\ntriangles m.tris\n'
+        "remap_from 0 0 0 8 8 8\nremap_to 0 0 0 8 8 8\n")
+    out = d / "full.png"
+    _cli([d / "scene.exa", "--size", "48", "36", "--camera", "20", "15",
+          "25", "4", "3", "3", "0", "1", "0", "--fov", "45", "--range", "0",
+          "7", "--dt", "0.7", "--isovals", "3.5", "--isochans", "0",
+          "--contourplane", "0", "0", "1", "0.4", "--contourchan", "0",
+          "--tracer", "3", "--tracer-channels", "0", "1", "2",
+          "--tracer-seeds", "16", "--tracer-steplen", "0.5", "--frames",
+          "2", "-o", out, "--device", device])
+    return _gate("e2e_full_cli golden", read_png(str(out)), read_png(
+        str(REPO / "tests" / "golden" / "e2e_full_cli.png")))
+
+
+def phase_cli_exajet256(device, card, n=256, size=(1920, 1080)):
+    """``cli_exajet256``: the README's Quick start chain at full width on
+    the bench's exajet256 scene (bench.py:242; 1,981,414 cells):
+    ``bench_scene.exajet_pattern_cells(256)`` written to .cells/.scalars
+    by the port's ``io.formats``, ``python -m owlexabrick_tpu_torch.
+    builder`` as a subprocess, a .exa with the field's value_range, and
+    the port's offline CLI at 1920x1080 from the bench camera (fovy 45,
+    dt 1, opacity scale 0.7, the TF domain from the .exa):
+
+    1. ``--fast --frames 8`` aligned as a ``python -m`` subprocess (its
+       printed ms per frame: a fresh process, the card's first frames
+       included), held to the in-process ``--plain-kernels`` frame; then
+       in process (warm): K6 and K1;
+    2. ``--fast`` from the tilted eye (0.9n, 0.8n, 2.2n): shear-warp,
+       K6, K1, K2a and K2b;
+    3. ``--fast --bands 4 --no-adaptive-stride``: K6 and K1 per band;
+       its image held to the unbanded ``render_slabs_camera`` frame of
+       the same slabs (uniform stride: adaptive-stride groups form inside
+       a chunk, and 66-slab bands do not fall on the 12-slab chunk
+       lattice), then the banded sweep's first (host band grids built)
+       and steady (reused, uploaded) frames with ``mem_stats`` and the
+       card's peak;
+    4. ``--fast --clip-box`` with the clipbox golden's box scaled to n:
+       the Renderer's fast path, K6 and K3;
+
+    each in-process kernel run held to the same command's
+    ``--plain-kernels`` frame under the golden gate, and the
+    ``e2e_full_cli`` golden through the port's CLI on the card.  Returns
+    (launches of the in-process kernel runs, record)."""
+    import torch
+
+    from owlexabrick_tpu_torch.bench_scene import exajet_pattern_cells
+    from owlexabrick_tpu_torch.io import formats
+    from owlexabrick_tpu_torch.io.config import parse_config
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.scene import scene_from_config
+    from owlexabrick_tpu_torch.render.slabs import (
+        SlabConfig, build_level_grids, render_slabs_banded,
+        render_slabs_camera)
+    from owlexabrick_tpu_torch.utils.png import read_png
+
+    (w, h), bands = size, 4
+    work = REPO / "build" / "cli_exajet256"
+    work.mkdir(parents=True, exist_ok=True)
+    rec = dict(row="cli_exajet256", card=card, size=[w, h])
+    t0 = time.perf_counter()
+    lower, level, scal = exajet_pattern_cells(n)
+    formats.write_cells(str(work / "e.cells"), lower, level)
+    formats.write_scalars(str(work / "e.scalars"), scal)
+    rec.update(cells=int(lower.shape[0]),
+               cells_by_level=np.bincount(level).tolist(),
+               cells_s=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "owlexabrick_tpu_torch.builder",
+         str(work / "e.cells"), "-o", str(work / "e.bricks")],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    rec["builder_s"] = round(time.perf_counter() - t0, 3)
+    for line in proc.stdout.splitlines():
+        log("  " + line)
+    if proc.returncode:
+        raise SystemExit(f"cli_exajet256: the builder failed:\n"
+                         f"{proc.stderr[-4000:]}")
+    vmax = float(scal.max())
+    exa = work / "e.exa"
+    exa.write_text(f"bricks e.bricks\nscalar density e.scalars\n"
+                   f"value_range 0 {vmax!r}\n")
+    # the scene build the CLI does first (the native region build)
+    t0 = time.perf_counter()
+    cfg = parse_config(str(exa))
+    scene = scene_from_config(cfg, device=device)[0]
+    torch.cuda.synchronize()
+    rec.update(scene_s=round(time.perf_counter() - t0, 3),
+               bricks=int(cfg.bricks.num_bricks),
+               regions=int(scene.region_lo.shape[0]))
+    del scene
+
+    c = n / 2
+    eye = dict(bench=[c, c, 2.2 * n], tilted=[0.9 * n, 0.8 * n, 2.2 * n])
+    base = [exa, "--size", w, h, "--fov", "45", "--dt", "1", "--xf-scale",
+            "0.7", "--device", device]
+
+    def cam_args(which):
+        return ["--camera", *eye[which], c, c, c, 0, 1, 0]
+
+    # 1. aligned, as the module's own __main__
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "owlexabrick_tpu_torch.viewer.offline",
+         *map(str, base + cam_args("bench") + [
+             "--fast", "--frames", "8", "-o", work / "aligned.png"])],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log("  " + line)
+    if proc.returncode:
+        raise SystemExit(f"cli_exajet256: the viewer CLI failed:\n"
+                         f"{proc.stderr[-4000:]}")
+    rec["aligned"] = dict(ms=_cli_ms(lines), subprocess_s=round(
+        time.perf_counter() - t0, 3))
+    _cli(base + cam_args("bench") + ["--fast", "--frames", "1",
+                                     "--plain-kernels", "-o",
+                                     work / "aligned_plain.png"])
+    rec["aligned"]["subprocess_gate"] = _gate(
+        "aligned (subprocess) vs plain", read_png(str(work / "aligned.png")),
+        read_png(str(work / "aligned_plain.png")))
+
+    # 2-4 in process: each launches its kernels
+    clip = ["--clip-box", *(v * n for v in CLIP_LO), *(v * n for v in
+                                                       CLIP_HI)]
+    runs = dict(
+        aligned=(cam_args("bench") + ["--fast", "--frames", "8"],
+                 ("K1", "K6")),
+        tilted=(cam_args("tilted") + ["--fast", "--frames", "2"],
+                ("K1", "K2a", "K2b", "K6")),
+        banded=(cam_args("bench") + ["--fast", "--bands", bands,
+                                     "--no-adaptive-stride"], ("K1", "K6")),
+        clip=(cam_args("bench") + clip + ["--fast", "--frames", "2"],
+              ("K3", "K6")))
+    total = {k: 0 for k in launch_counts()}
+    for name, (args, kernels) in runs.items():
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = work / f"{name}{'_warm' if name == 'aligned' else ''}.png"
+        _, ms = _cli(base + args + ["-o", out])
+        got = launch_counts()
+        rec.setdefault(name, {}).update(
+            {"ms" if name != "aligned" else "warm_ms": ms, "launches": got,
+             "peak_mb": round(torch.cuda.max_memory_allocated() / 1e6, 1)})
+        if min(got[k] for k in kernels) <= 0:
+            raise SystemExit(f"cli_exajet256 {name}: a kernel of its path "
+                             f"was not launched: {got}")
+        total = {k: total[k] + got[k] for k in total}
+        if name in ("tilted", "clip"):
+            _cli(base + args + ["--plain-kernels", "-o",
+                                work / f"{name}_plain.png"])
+        if name != "banded":
+            rec[name][f"{name}_gate"] = _gate(
+                f"{name} vs plain", read_png(str(out)),
+                read_png(str(work / f"{name}_plain.png")))
+
+    # 3b. the banded image against the unbanded frame of the same slabs
+    # (the CLI's banded sweep keeps the knots), then its first and
+    # steady frames through the host band-grid cache
+    cam = Camera.look_at(eye["bench"], [c, c, c], [0, 1, 0], 45.0, w, h)
+    fs = make_frame_state(cam, 1, [[0.0, vmax]], dt=1.0, opacity_scale=0.7)
+    lo3, hi3 = cfg.bricks.bounds()
+    extent = float(hi3[:, 2].max() - lo3[:, 2].min()) + float(
+        1 << int(cfg.bricks.level.max()))
+    scfg = SlabConfig(nslabs=int(np.ceil(extent)), adaptive_stride=False)
+    scalars = cfg.scalar_fields[0].values[cfg.cell_ids]
+    torch.cuda.reset_peak_memory_stats()
+    grids = build_level_grids(cfg.bricks, scalars, axis=2, device=device)
+    t0 = time.perf_counter()
+    full = render_slabs_camera(grids, fs, scfg, cam, w, h)
+    torch.cuda.synchronize()
+    rec["banded"]["unbanded_ms"] = round((time.perf_counter() - t0) * 1e3,
+                                         3)
+    rec["banded"]["unbanded_peak_mb"] = round(
+        torch.cuda.max_memory_allocated() / 1e6, 1)
+    rec["banded"].update(_gate("banded vs unbanded", read_png(
+        str(work / "banded.png")), _srgb_u8(full, w, h)))
+    del grids, full
+    torch.cuda.empty_cache()
+    mem, times = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        render_slabs_banded(cfg.bricks, scalars, fs, scfg, cam, w, h,
+                            n_bands=bands, mem_stats=mem, device=device)
+        torch.cuda.synchronize()
+        times.append(round((time.perf_counter() - t0) * 1e3, 3))
+    rec["banded"].update(
+        first_ms=times[0], steady_ms=times[1:],
+        peak_band_bytes=mem["peak_band_bytes"], full_bytes=mem["full_bytes"],
+        band_peak_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1))
+    if mem["peak_band_bytes"] >= mem["full_bytes"]:
+        raise SystemExit(f"cli_exajet256: a band holds the full grids {mem}")
+    rec["e2e_full_cli"] = _full_scene_golden(work, device)
+    log("cli_exajet256:", json.dumps(rec))
+    log("launches on the CLI path:", json.dumps(total))
+    return total, rec
+
+
 def profile_once(fn, trace_path=None):
     """One ``fn()`` (ending in a synchronize) under torch.profiler:
     (device ms, device launches, the port's kernels' {id: (ms, n)}, the
@@ -2399,6 +2674,10 @@ def main() -> int:
     del c_rows, c_frames
     phase_blobs256_scene(dev, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # the front door: the Quick start chain through the port's CLI
+    cli, _ = phase_cli_exajet256(dev, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
         # no Chrome traces: a 1080p einsum-lane frame's is tens of MB
@@ -2417,7 +2696,7 @@ def main() -> int:
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
     src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
     launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k] + surf[k]
-                + contour[k] for k in aligned}
+                + contour[k] + cli[k] for k in aligned}
 
     def entry(name, source, replaces, key, err, res, prefix=""):
         # one PyTorch call computes K5's and K6's functions (grid_sample),

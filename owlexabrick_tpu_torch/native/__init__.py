@@ -121,10 +121,13 @@ _STRATEGIES = {"spatial-median": 0, "sah-alike": 1, "small-brick-count": 2}
 
 
 def native_build_bricks_flat(lower, level, strategy: str = "sah-alike",
-                             max_leaf_width: int = 127):
+                             max_leaf_width: int = 127,
+                             with_kd: bool = False):
     """Native cells -> (Bricks, cell_ids) as ``pipeline.bricks_from_build``
     makes them from the numpy builder's result (the core lays cells out x
-    fastest in brick order with running begin offsets)."""
+    fastest in brick order with running begin offsets).  ``with_kd``
+    adds a third item: the kd-tree as ``bricker.kd_to_arrays`` gives it
+    (axis, word0, lo30, max_level)."""
     from ..core.types import Bricks
 
     lib = load()
@@ -143,14 +146,15 @@ def native_build_bricks_flat(lower, level, strategy: str = "sah-alike",
         b_level = np.empty(m, np.int32)
         b_begin = np.empty(m, np.int64)
         cell_ids = np.empty(nc, np.int32)
-        kd = [np.empty(nk, np.int32) for _ in range(4)]  # not read here
+        kd = [np.empty(nk, np.int32) for _ in range(4)]
         lib.exa_build_copy(h, _ptr(b_lower), _ptr(b_size), _ptr(b_level),
                            _ptr(b_begin), _ptr(cell_ids),
                            *(_ptr(a) for a in kd))
     finally:
         lib.exa_build_free(h)
-    return Bricks(lower=b_lower, size=b_size, level=b_level,
-                  begin=b_begin.astype(np.int32)), cell_ids
+    bricks = Bricks(lower=b_lower, size=b_size, level=b_level,
+                    begin=b_begin.astype(np.int32))
+    return (bricks, cell_ids, tuple(kd)) if with_kd else (bricks, cell_ids)
 
 
 def native_build_regions(bricks, scalars: Optional[np.ndarray],

@@ -60,3 +60,29 @@ class Camera:
             dir_du=(horizontal / width).astype(np.float32),
             dir_dv=(vertical / height).astype(np.float32),
         )
+
+    def rays(self, width: int, height: int, jitter=None):
+        """Generate (origin, direction) for every pixel (host numpy).
+
+        ``jitter``: (H, W, 2) in [0,1) intra-pixel offsets (0.5 center
+        default).  Returns origins (H*W, 3), normalized dirs (H*W, 3) in
+        row-major pixel order (y-major, x fastest) like the reference's
+        pixelIdx = x + w*y.
+        """
+        px, py = np.meshgrid(np.arange(width), np.arange(height))
+        if jitter is None:
+            jx = jy = 0.5
+        else:
+            jx = jitter[..., 0]
+            jy = jitter[..., 1]
+        d = (
+            self.dir00[None, None]
+            + (px + jx)[..., None] * self.dir_du[None, None]
+            + (py + jy)[..., None] * self.dir_dv[None, None]
+        )
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        o = np.broadcast_to(self.pos, d.shape)
+        return (
+            o.reshape(-1, 3).astype(np.float32),
+            d.reshape(-1, 3).astype(np.float32),
+        )

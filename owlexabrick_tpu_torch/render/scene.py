@@ -3,7 +3,7 @@ cell IDs and scalar fields become the exact renderer's ``Scene`` (the
 analog of OptixRenderer's buffer setup, exa/OptixRenderer.cpp:38-210).
 The region build is host work (the native core by default); the Scene's
 tensors land on the render device.  ``Scene.to(device)`` moves a built
-scene."""
+scene.  ``scene_from_config`` builds one from a parsed ``.exa`` config."""
 
 from __future__ import annotations
 
@@ -141,3 +141,23 @@ def scene_bricks(scene: Scene) -> Tuple[Bricks, np.ndarray]:
         level=np.round(np.log2(cw)).astype(np.int32),
         begin=scene.brick_begin.cpu().numpy())
     return bricks, scene.scalars.cpu().numpy()
+
+
+def scene_from_config(cfg, multi_field_dvr: bool = False, device="cuda",
+                      backend: str = "native"
+                      ) -> Tuple[Scene, Regions, RegionTree]:
+    """A parsed ``.exa`` config (``io.config.Config``) -> the Scene on
+    ``device``.  ``multi_field_dvr``: every field enters the region value
+    ranges (multi-field DVR), else channel 0 alone."""
+    if cfg.bricks is None:
+        raise ValueError("config has no bricks")
+    n_range = len(cfg.scalar_fields) if multi_field_dvr else 1
+    return build_scene(
+        cfg.bricks,
+        cfg.cell_ids,
+        cfg.scalar_fields,
+        voxel_from_world=cfg.voxel_from_world(),
+        num_range_channels=n_range,
+        device=device,
+        backend=backend,
+    )

@@ -619,12 +619,20 @@ def compress_pwl(luts_np, err_tol: float = 2e-4,
 class SlabConfig:
     """Slab-sweep settings: the default-lane fields of the JAX package's
     ``SlabConfig`` that a caller sets (same names and defaults), plus
-    ``plain_sweep``.  The port always culls by the transfer function,
-    classifies the full 128-texel LUT (compressed to knots) and
-    collapses saturated pixels, as the reference's defaults do."""
+    ``plain_sweep``.  The port always culls by the transfer function and
+    classifies the full 128-texel LUT, compressed to knots unless
+    ``xf_compress`` is off."""
 
     num_channels: int = 1
     nslabs: int = 128
+    # collapse saturated pixels to premultiplied-opaque at the end
+    # (exabrick.cu:1694-97); the banded sweep defers it to its combiner
+    saturate_collapse: bool = True
+    # the megakernel lane classifies through the LUT's PWL knots (within
+    # one display quantum, compress_pwl); False classifies the dense
+    # 128-texel LUT, as the JAX package does for a frame state held on
+    # its device (its offline CLI's --fast frames)
+    xf_compress: bool = True
     # slabs per chunk (capped by effective_chunk)
     chunk: int = 12
     # sweep back to front along z (set from the view direction)
@@ -1061,7 +1069,8 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                  cam_du, cam_dv, width: int, height: int, knots=None,
                  ky_hints=None, products=None, return_products: bool = False,
                  products_chunks: int = 0, light_rest: bool = False,
-                 y_crop=None, lattice=None, t_start=None, t_stop=None):
+                 y_crop=None, lattice=None, t_start=None, t_stop=None,
+                 carry=None):
     """Sweep-render one frame (``slabs.render_slabs``).  Camera vectors
     are already permuted to the grid frame (z = sweep axis) and
     separable, or ``lattice`` ((W,), (H,)) gives the lateral ray
@@ -1073,6 +1082,11 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     t1 = min(t1, surface t)).  ``t_start`` takes the einsum lane, as does
     ``cfg.gradient_shading_dvr`` (``megakernel_lane``); ``t_stop`` alone
     stays on the megakernel lane, where K1 tests it per sample.
+
+    ``carry``: optional (P, 4) premultiplied rgba the sweep starts from
+    (an earlier sweep of the slabs in front, its saturation collapse
+    off), so this sweep continues that composite as one pass would: its
+    early exit and K1's saturation skips see the carried alpha.
 
     ``return_products=True`` (megakernel lane only) returns the
     per-chunk camera products (the sweep inputs, frame-state
@@ -1235,8 +1249,13 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     lane = None if mega else _EinsumLane(
         grids, cfg, cam_pos, d00, rx, ry, sec, dz, luts, dom_np, h, w,
         t_start, t_stop)
-    color = torch.zeros((3, h, w), dtype=f32, device=dev)
-    alpha = torch.zeros((h, w), dtype=f32, device=dev)
+    if carry is None:
+        color = torch.zeros((3, h, w), dtype=f32, device=dev)
+        alpha = torch.zeros((h, w), dtype=f32, device=dev)
+    else:
+        carry = torch.as_tensor(carry, dtype=f32).to(dev)
+        color = carry[:, :3].T.reshape(3, h, w).contiguous()
+        alpha = carry[:, 3].reshape(h, w).contiguous()
     for ci in range(n_chunks):
         # exact early exit: every pixel saturated
         if not bool(alpha.min() < TERMINATION_THRESHOLD):
@@ -1272,11 +1291,19 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         alpha = 1.0 - trans
 
     # saturated pixels collapse to premultiplied opaque (exabrick.cu:1694-97)
+    if cfg.saturate_collapse:
+        color, alpha = _collapse_saturated(color, alpha)
+    rgba = torch.cat([color, alpha[None]], dim=0)  # (4, H, W)
+    return rgba.reshape(4, h * w).T
+
+
+def _collapse_saturated(color: torch.Tensor, alpha: torch.Tensor):
+    """Saturated pixels (alpha >= TERMINATION_THRESHOLD) become
+    premultiplied opaque; ``color`` carries the channel axis first."""
     sat = alpha >= TERMINATION_THRESHOLD
     color = torch.where(sat[None], color * alpha[None], color)
     alpha = torch.where(sat, 1.0, alpha)
-    rgba = torch.cat([color, alpha[None]], dim=0)  # (4, H, W)
-    return rgba.reshape(4, h * w).T
+    return color, alpha
 
 
 def _cache_budget_mb(cfg: SlabConfig, device) -> float:
@@ -1294,7 +1321,8 @@ def _cache_budget_mb(cfg: SlabConfig, device) -> float:
 
 def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
                         width: int, height: int, camera_cache=None,
-                        lattice=None, t_start=None, t_stop=None):
+                        lattice=None, t_start=None, t_stop=None,
+                        carry=None):
     """Permute/validate the camera, render transposed when pixel x runs
     along grid y, pick the sweep direction from the view sign, crop the
     grids to the rows the rays reach (not under gradient shading, as in
@@ -1310,6 +1338,7 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
     iso hit's depth as ``t_stop``).  ``t_start`` and
     ``cfg.gradient_shading_dvr`` take the einsum lane; ``t_stop`` alone
     stays on the megakernel lane (K1's surface stop) and its cache.
+    ``carry``: optional (P, 4) rgba to continue from (``render_slabs``).
 
     ``camera_cache``: optional dict owned by the caller (megakernel lane
     only; the einsum lane has no product cache).  The per-chunk camera
@@ -1341,7 +1370,8 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
 
     # host-side PWL compression of the transfer function (~10x fewer
     # classification knots for control-point colormaps; the megakernel's)
-    knots = compress_pwl(scaled_luts(fs, cfg.num_channels)) if mega else None
+    knots = (compress_pwl(scaled_luts(fs, cfg.num_channels))
+             if mega and cfg.xf_compress else None)
 
     def cached_products(pos_, dir00_, du_, dv_, w_, h_, hints):
         if camera_cache is None:
@@ -1396,12 +1426,15 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
         return render_slabs(grids, fs, cfg, pos, dir00, du, dv, width,
                             height, knots=knots, ky_hints=hints,
                             products=products, y_crop=y_crop,
-                            lattice=lattice, t_start=t_start, t_stop=t_stop)
+                            lattice=lattice, t_start=t_start, t_stop=t_stop,
+                            carry=carry)
 
     def transposed(t):
         # the internal render is transposed: internal row = final column
-        return (None if t is None else torch.as_tensor(t).reshape(
-            height, width).T.reshape(-1))
+        if t is None:
+            return None
+        t = torch.as_tensor(t)
+        return t.reshape(height, width, -1).transpose(0, 1).reshape(t.shape)
 
     # transposed internals: the v axis is du and the row count is width
     hints = ky_hints_for_camera(grids, cfg, pos, dir00, du, width, height)
@@ -1409,8 +1442,156 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
     rgba = render_slabs(grids, fs, cfg, pos, dir00, dv, du, height, width,
                         knots=knots, ky_hints=hints, products=products,
                         y_crop=y_crop, t_start=transposed(t_start),
-                        t_stop=transposed(t_stop))
+                        t_stop=transposed(t_stop), carry=transposed(carry))
     return rgba.reshape(width, height, 4).permute(1, 0, 2).reshape(-1, 4)
+
+
+# ----------------------------------------------------------------------------
+# out-of-core z-bands
+# ----------------------------------------------------------------------------
+
+# host band grids of the scenes rendered with reuse=True: key -> (the
+# bricks' lower array, the scalars, {band: host LevelGrids or None})
+_BAND_GRID_CACHE: dict = {}
+
+
+def _grid_bytes(bricks, channels: int, axis: int) -> int:
+    """Bytes of the value and mask grids ``build_level_grids`` builds for
+    ``bricks`` (each level cropped to its bricks' box), without
+    building them."""
+    perm = _perm(axis)
+    lo3, hi3 = bricks.bounds()
+    total = 0
+    for L in np.unique(bricks.level):
+        sel = bricks.level == L
+        _, (nz, ny, nx) = _level_frame(lo3[sel].min(0), hi3[sel].max(0),
+                                       1 << int(L), perm)
+        total += (channels + 1) * nz * ny * nx * 4
+    return total
+
+
+def render_slabs_banded(bricks, scalars, fs, cfg: SlabConfig, camera,
+                        width: int, height: int, n_bands: int,
+                        axis: int = 2, mem_stats=None, reuse: bool = True,
+                        device="cuda") -> torch.Tensor:
+    """Out-of-core slab sweep (``slabs.render_slabs_banded``) for scenes
+    whose dense level grids exceed the card's memory: the sweep axis is
+    cut into ``n_bands`` z-bands; each band's grids are built on the
+    host from only the bricks whose basis support reaches the band,
+    uploaded to ``device``, swept by ``render_slabs_camera`` (K6 and K1
+    on the card) with the saturation collapse off, and freed; the bands
+    go front to back, each sweep continuing the composite of the bands
+    in front (``carry``), and the collapse is applied once at the end.
+
+    Band boundaries lie on the global slab lattice, so the union of the
+    bands' slab planes is the single-pass plane set, and the carried
+    composite lets each band's early exit and K1's saturation skips act
+    as in one pass: the image matches the unbanded render to float
+    tolerance.  (The JAX package composites each band from zero, so its
+    banded image takes in the light behind saturated tiles that the
+    single pass skips.)  Adaptive-stride groups form inside a chunk, so
+    with ``adaptive_stride`` the match holds where band boundaries fall
+    on the unbanded chunk lattice.  With ``reuse`` (the interactive
+    default) the host band grids are scattered once and kept in
+    ``_BAND_GRID_CACHE``; later frames pay the upload and the sweep.  A
+    band whose every pixel is already saturated ends the sweep (a host
+    read per band).
+
+    ``mem_stats``: optional dict given ``peak_band_bytes`` (the largest
+    band's value and mask bytes on the device) and ``full_bytes`` (what
+    the unbanded grids hold).  Returns (P, 4) rgba on ``device``."""
+    dev = render_device(device)
+    scalars = np.asarray(scalars, np.float32)
+    if scalars.ndim == 1:
+        scalars = scalars[None]
+    lo3, hi3 = bricks.bounds()
+    coarsest = 1 << int(np.max(bricks.level))
+    pad = 0.5 * coarsest
+    z_lo = float(lo3[:, axis].min()) - pad
+    z_hi = float(hi3[:, axis].max()) + pad
+
+    ns_band = -(-cfg.nslabs // n_bands)
+    ns_total = ns_band * n_bands
+    dz = (z_hi - z_lo) / ns_total
+
+    # brick basis support along the sweep axis (getDomain: bounds +-
+    # half the brick's cell width, ExaBricks.h:55-60)
+    cw_b = (1 << bricks.level.astype(np.int64)).astype(np.float64)
+    b_lo = lo3[:, axis] - 0.5 * cw_b
+    b_hi = hi3[:, axis] + 0.5 * cw_b
+
+    _, dir00, _, _ = permute_camera(camera, axis)
+    flip = bool(dir00[0] < 0)
+    order = range(n_bands - 1, -1, -1) if flip else range(n_bands)
+
+    rgba = torch.zeros((width * height, 4), dtype=torch.float32, device=dev)
+    bcfg = dataclasses.replace(cfg, nslabs=ns_band, saturate_collapse=False)
+
+    def build_band(b):
+        """Host band grids (CPU tensors), or None for an empty band."""
+        zb0 = z_lo + b * ns_band * dz
+        zb1 = zb0 + ns_band * dz
+        sel = np.nonzero((b_hi > zb0) & (b_lo < zb1))[0]
+        if sel.size == 0:
+            return None
+        sub = type(bricks)(lower=bricks.lower[sel], size=bricks.size[sel],
+                           level=bricks.level[sel],
+                           begin=bricks.begin[sel])
+        gb = build_level_grids(sub, scalars, axis=axis, device="cpu")
+        lo_p = np.asarray(gb.bounds_lo).copy()
+        hi_p = np.asarray(gb.bounds_hi).copy()
+        lo_p[0], hi_p[0] = zb0, zb1
+        zr = _compute_zranges(
+            list(gb.levels), [v.numpy() for v in gb.vals],
+            [m.numpy() for m in gb.masks], list(gb.origins), lo_p, hi_p)
+        return dataclasses.replace(gb, bounds_lo=lo_p, bounds_hi=hi_p,
+                                   zranges=torch.from_numpy(zr))
+
+    cache_key = (id(bricks.lower), id(scalars) if scalars.base is None
+                 else id(scalars.base), n_bands, axis, ns_total)
+    hit = _BAND_GRID_CACHE.get(cache_key) if reuse else None
+    if hit is not None and hit[0] is bricks.lower:
+        bands_host = hit[2]
+    else:
+        bands_host = {}
+        if reuse:
+            if len(_BAND_GRID_CACHE) > 8:
+                _BAND_GRID_CACHE.clear()
+            _BAND_GRID_CACHE[cache_key] = (bricks.lower, scalars,
+                                           bands_host)
+    if mem_stats is not None:
+        mem_stats["full_bytes"] = _grid_bytes(bricks, scalars.shape[0],
+                                              axis)
+
+    for b in order:
+        if b not in bands_host:
+            bands_host[b] = build_band(b)
+        gb_host = bands_host[b]
+        if gb_host is None:
+            continue
+        # per-frame cost from here: the upload, the sweep, the free
+        gb = gb_host.to(dev)
+        if mem_stats is not None:
+            band_bytes = nbytes_grids(gb)
+            mem_stats["peak_band_bytes"] = max(
+                mem_stats.get("peak_band_bytes", 0), band_bytes)
+        # front to back: the band's sweep continues the composite of the
+        # bands in front
+        rgba = render_slabs_camera(gb, fs, bcfg, camera, width, height,
+                                   carry=rgba)
+        del gb
+        if bool(rgba[:, 3].min() >= TERMINATION_THRESHOLD):
+            break
+
+    # the reference's saturated-pixel collapse, applied once globally
+    color, alpha = _collapse_saturated(rgba[:, :3].T, rgba[:, 3])
+    return torch.cat([color, alpha[None]], dim=0).T
+
+
+def nbytes_grids(grids: LevelGrids) -> int:
+    """Bytes of a LevelGrids' value and mask grids."""
+    return sum(t.numel() * t.element_size()
+               for t in (*grids.vals, *grids.masks))
 
 
 # ----------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 """exaRawToCells: structured raw volume -> AMR cells by octree collapse
-(the port of ``owlexabrick_tpu/tools/raw2cells.py:25-95``, host numpy;
+(the port of ``owlexabrick_tpu/tools/raw2cells.py``, host numpy;
 re-implements the reference's tools/fromVolume/raw2cells.cpp:140-245).
+
+    python -m owlexabrick_tpu_torch.tools.raw2cells nx ny nz \
+        byte|float|double in.raw outbase threshold maxLevel [refinement=2]
 
 A 2x2x2 block of level-L cells collapses to one level-(L+1) cell when
 its value range is within ``threshold``; the collapsed scalar is the
@@ -10,9 +13,12 @@ in-bounds voxels, like the reference.
 
 from __future__ import annotations
 
+import sys
 from typing import Tuple
 
 import numpy as np
+
+from ..io import formats
 
 
 def volume_to_cells(
@@ -69,3 +75,44 @@ def volume_to_cells(
             covered = np.repeat(np.repeat(np.repeat(nxt, 2, 0), 2, 1), 2, 2)
     return (np.concatenate(lowers), np.concatenate(levels),
             np.concatenate(scalars))
+
+
+_DTYPES = {"byte": np.uint8, "float": np.float32, "double": np.float64}
+
+
+def convert(nx: int, ny: int, nz: int, fmt: str, in_file: str,
+            out_base: str, threshold: float, max_level: int) -> int:
+    dt = _DTYPES[fmt]
+    raw = np.fromfile(in_file, dtype=dt, count=nx * ny * nz)
+    vol = raw.reshape(nz, ny, nx).astype(np.float64)
+    lower, level, scal = volume_to_cells(vol, threshold, max_level)
+    formats.write_cells(out_base + ".cells", lower, level)
+    formats.write_scalars(out_base + ".scalars", scal)
+    frac = 100.0 - lower.shape[0] * 100.0 / (nx * ny * nz)
+    print(
+        f"#exa: wrote {lower.shape[0]} cells "
+        f"({frac:.1f}% compression) to {out_base}.cells/.scalars"
+    )
+    return lower.shape[0]
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    if len(argv) not in (8, 9):
+        print(
+            "usage: exa-raw2cells nx ny nz byte|float|double in.raw "
+            "outbase threshold maxLevel [refinement=2]"
+        )
+        return 1
+    if len(argv) == 9 and int(argv[8]) != 2:
+        print("only refinement=2 is supported")
+        return 1
+    convert(
+        int(argv[0]), int(argv[1]), int(argv[2]), argv[3], argv[4],
+        argv[5], float(argv[6]), int(argv[7]),
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

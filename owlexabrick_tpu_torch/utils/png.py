@@ -1,6 +1,7 @@
-"""Minimal dependency-free PNG reader, 8-bit gray/RGB/RGBA (the reader of
-``owlexabrick_tpu/utils/png.py``, which cannot be imported without
-``jax``), and the golden-image gate."""
+"""Minimal dependency-free PNG writer/reader, 8-bit gray/RGB/RGBA (the
+port's copy of ``owlexabrick_tpu/utils/png.py``: the same chunks, zlib
+level 6 and filter 0, so both packages write the same bytes), and the
+golden-image gate."""
 
 from __future__ import annotations
 
@@ -10,10 +11,46 @@ import zlib
 import numpy as np
 
 
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (
+        struct.pack(">I", len(data))
+        + tag
+        + data
+        + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+    )
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """image: (H, W), (H, W, 3) or (H, W, 4) uint8 (row 0 = top).
+    ``path`` may be a filesystem path or a binary file-like object."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError("write_png expects uint8")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    raw = b"".join(b"\x00" + img[row].tobytes() for row in range(h))
+    out = b"\x89PNG\r\n\x1a\n"
+    out += _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0,
+                                       0, 0))
+    out += _chunk(b"IDAT", zlib.compress(raw, 6))
+    out += _chunk(b"IEND", b"")
+    if hasattr(path, "write"):
+        path.write(out)
+    else:
+        with open(path, "wb") as f:
+            f.write(out)
+
+
 def read_png(path) -> np.ndarray:
-    """Reads 8-bit non-interlaced gray/RGB/RGBA PNGs (filters 0-4)."""
-    with open(path, "rb") as f:
-        data = f.read()
+    """Reads 8-bit non-interlaced gray/RGB/RGBA PNGs (filters 0-4) from a
+    path or a file-like object."""
+    if hasattr(path, "read"):
+        data = path.read()
+    else:
+        with open(path, "rb") as f:
+            data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("not a png")
     pos = 8

@@ -1,8 +1,8 @@
 """PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
 surface stop), K2a/K2b (csrc/warp.cu), K3 (from the mids), K4, K5
 (csrc/xf.cu) and K6 (csrc/mids.cu) against their plain-torch versions,
-and the port's main path, einsum lane and iso path on CUDA against the
-same paths on the CPU.  Marked ``cuda``; each test skips where no card
+and the port's main path, einsum lane and iso path and the offline
+CLI's ``--fast`` runs on CUDA against the same paths on the CPU.  Marked ``cuda``; each test skips where no card
 is present (the check runs inside the fixture, never at import).
 Imports no jax, so it also runs where only torch is installed; there,
 skip the suite's conftest, which sets up jax:
@@ -595,3 +595,47 @@ def test_trace_dvr_on_card_matches_cpu(cuda, grad):
     assert float((hit == torch.isfinite(tb)).float().mean()) >= 0.999
     both = hit & torch.isfinite(tb)
     assert float((ta[both] - tb[both]).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("case", ["aligned", "tilted", "bands2", "clip"])
+def test_cli_fast_on_card_matches_cpu(cuda, tmp_path, case):
+    """The offline CLI's --fast run with ``--device cuda`` (the kernels)
+    against ``--device cpu`` (the plain twins): every pixel within
+    1/255, and the path's kernel launched (K1; K3 for the clip box; at
+    this size ``warp_windows`` admits no two-pass warp, so the tilted
+    frame warps in torch, as the JAX package does)."""
+    from owlexabrick_tpu_torch.builder.__main__ import main as build_main
+    from owlexabrick_tpu_torch.render.classify import composite_mids_cuda
+    from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
+    from owlexabrick_tpu_torch.tools.artificial import generate
+    from owlexabrick_tpu_torch.utils.png import read_png
+    from owlexabrick_tpu_torch.viewer.offline import main
+
+    (tmp_path / "g.grids").write_text(
+        "0 0 0 6 6 6 0 0 1 2 3 4 5 6 7\n6 0 0 2 2 2 1 4\n")
+    generate(str(tmp_path / "g.grids"), str(tmp_path / "d"))
+    assert build_main([str(tmp_path / "d.cells"), "-o",
+                       str(tmp_path / "d.bricks")]) == 0
+    (tmp_path / "s.exa").write_text(
+        "bricks d.bricks\nscalar density d.scalars\nvalue_range 0 7\n")
+    eye = ["14", "9", "20"] if case == "tilted" else ["5", "3", "30"]
+    args = [str(tmp_path / "s.exa"), "--fast", "--size", "96", "64", "--dt",
+            "0.7", "--frames", "2", "--camera", *eye, "5", "3", "3", "0",
+            "1", "0", "--fov", "40"]
+    args += {"bands2": ["--bands", "2"],
+             "clip": ["--clip-box", "2", "0", "0", "10", "6", "4"]
+             }.get(case, [])
+    fns = {"aligned": [sweep_chunk_cuda], "bands2": [sweep_chunk_cuda],
+           "tilted": [sweep_chunk_cuda],
+           "clip": [composite_mids_cuda]}[case]
+    for fn in fns:
+        fn.launches = 0
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.png")
+        assert main(args + ["--device", dev, "-o", out]) == 0
+        imgs.append(read_png(out).astype(int))
+        if dev == "cuda":
+            assert all(fn.launches > 0 for fn in fns), case
+    assert np.abs(imgs[0] - imgs[1]).max() <= 1
+    assert (imgs[0][..., :3] > 8).any()
