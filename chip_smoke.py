@@ -112,10 +112,23 @@ the run:
     frame against its plain frame;
 17. ``blobs256_scene``: the 256^3 scene (7,431,411 cells) built with the
     native core and moved to the card (build s, MB), then one exact
-    frame at BLOBS256_EXACT_SIZE.
+    frame at BLOBS256_EXACT_SIZE;
+18. ``cli_exajet256``: the README's Quick start chain through the port's
+    builder and offline CLI (``phase_cli_exajet256``);
+19. ``phase_levels``: K1 and K3 past 8 levels, seeded 1080p chunks of 9
+    and 12 levels (K1 at 1 and 4 channels), each against its twin;
+20. ``phase_serve``: the web viewer on the ``.exa`` phase 18 wrote, at
+    1920x1080 behind an HTTP server in this process, through real
+    requests (orbit, axis and fly poses, the clip box, gradient shading,
+    iso, the tracer, the clock overlay, ``/xf``), two frames against a
+    ``plain_kernels`` viewer;
+21. ``phase_mesh``: the multi-device modes on two gloo ranks sharing the
+    card (spawned): px and spp meshes of the exact path, pixel bands and
+    z bands of blobs256, each against the same work in this process.
 
 Launch counts are set to 0 just before each path (aligned, tilted,
-einsum lane, iso, surfaces, contour) and read just after; a kernel of a path
+einsum lane, iso, surfaces, contour, CLI, serve; the mesh ranks count
+their own) and read just after; a kernel of a path
 that launched no time there fails the run, and so does an uncached
 megakernel frame whose K6 launches are not one per 8 levels of every
 chunk it swept, and a one-channel clip frame that does not launch K3
@@ -133,7 +146,7 @@ megakernel rows (``phase_profile``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card, and the one before that lists each
-kernel with its launches on the six fast paths, its error against its plain
+kernel with its launches on every path, its error against its plain
 version, its time, its plain version's time, its bound and, for K5 and
 K6, the library call's time.
 Exits non-zero without a CUDA card or without the port's sources.
@@ -289,7 +302,8 @@ def bench_setup(kind, n, width, height, device):
     chunk, budget = (24, 16) if 200 <= ns <= 600 else (12, 7)
     cfg = SlabConfig(num_channels=1, nslabs=ns, chunk=chunk,
                      chunk_budget_mb=budget)
-    return grids, cam, fs, cfg, dict(meta, grids_build_s=round(build_s, 1))
+    return grids, cam, fs, cfg, dict(meta, n=n,
+                                     grids_build_s=round(build_s, 1))
 
 
 def chunk_inputs(grids, cam, fs, cfg, width, height, chunk_index,
@@ -2240,14 +2254,14 @@ def _srgb_u8(rgba, width, height):
     return np.clip(srgb.cpu().numpy() * 255, 0, 255).astype(np.uint8)[::-1]
 
 
-def _gate(name, img, want):
+def _gate(name, img, want, phase="cli_exajet256"):
     from owlexabrick_tpu_torch.utils.png import golden_gate
 
     ok, mx, exact = golden_gate(img, want)
-    log(f"cli_exajet256 {name}: max_diff={mx} exact={exact:.4f} "
+    log(f"{phase} {name}: max_diff={mx} exact={exact:.4f} "
         f"{'pass' if ok else 'FAIL'}")
     if not ok or not (img[..., :3] > 16).any():
-        raise SystemExit(f"cli_exajet256: {name} failed the golden gate")
+        raise SystemExit(f"{phase}: {name} failed the golden gate")
     return dict(max_diff=mx, exact=round(exact, 5))
 
 
@@ -2476,6 +2490,476 @@ def phase_cli_exajet256(device, card, n=256, size=(1920, 1080)):
     return total, rec
 
 
+def deep_chunk(n_levels, device, seed, height=1080, width=1920, slabs=12):
+    """A seeded chunk of ``n_levels`` levels at the main path's 1080p
+    shapes (K1's inputs): level l of cell width 2^l over a 256-row
+    level-0 lattice, mids (2, S, ny_l, W) with empty samples, the y
+    positions of the chunk's slabs, every slab live, the Jet LUT's
+    knots and dense tables, the activity tables these give."""
+    import torch
+
+    from owlexabrick_tpu_torch.render.slabs import compress_pwl
+    from owlexabrick_tpu_torch.render.sweep import (
+        combine_activity, pack_luts, prepare_chunk)
+    from owlexabrick_tpu_torch.viewer.colormaps import colormap_colors
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    mids = []
+    for lv in range(n_levels):
+        ny = (256 >> lv) + 3
+        r = torch.rand((2, slabs, ny, width), generator=g, device=device)
+        mask = torch.where(r[1:] < 0.2, 0.0, r[1:])
+        mids.append(torch.cat([r[:1] * mask, mask]).contiguous())
+    rows = torch.linspace(-2.0, 258.0, height, device=device)
+    y_pos = (rows[None] * (1.0 + 0.002 * torch.arange(
+        slabs, device=device, dtype=torch.float32)[:, None])).contiguous()
+    prep = prepare_chunk(mids, [-1.0] * n_levels,
+                         [float(1 << lv) for lv in range(n_levels)], y_pos,
+                         height, width)
+    opac = np.clip(np.linspace(-0.2, 1.0, 128), 0.0, 1.0)
+    lut_np = np.concatenate([colormap_colors("Jet", 128),
+                             0.1 * opac[:, None]], 1).astype(np.float32)
+    lut = torch.from_numpy(lut_np).to(device)
+    domains = torch.tensor([[0.0, 1.0]], device=device)
+    live = torch.ones(slabs, dtype=torch.bool, device=device)
+    act_f, act_all_f = combine_activity(prep, live, [lut], domains)
+    sec = 1.0 + 0.2 * torch.rand((height, width), generator=g,
+                                 device=device)
+    pt = 0.2 + 0.8 * torch.rand((height, width), generator=g, device=device)
+    return dict(prep=prep, live=live, act_f=act_f, act_all_f=act_all_f,
+                sec=sec, dz=np.float32(0.75), pt=pt,
+                tables_knots=pack_luts([lut], domains, compress_pwl([lut_np]),
+                                       device))
+
+
+def deep_k3_inputs(n_levels, device, seed, height=1080, width=1920,
+                   slabs=12):
+    """K3's inputs (mids, y taps, scale, t_start, t_stop, sec, LUT,
+    domain, dz) for a seeded 1080p chunk of ``n_levels`` occupied
+    levels: level l's mids (2, S, ny_l, W) over a 256-row level-0
+    lattice, its tent taps at screen rows running past both lattice
+    ends, a clip interval that 10% of pixels miss."""
+    import torch
+
+    from owlexabrick_tpu_torch.render.mids import tent_taps
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    mids, taps = [], []
+    for lv in range(n_levels):
+        ny = (256 >> lv) + 3
+        mask = torch.where(rand(slabs, ny, width) < 0.2, 0.0,
+                           rand(slabs, ny, width))
+        mids.append(torch.stack([(1.6 * rand(slabs, ny, width) - 0.3)
+                                 * mask, mask]).contiguous())
+        qy = (torch.linspace(-1.5, ny + 0.5, height, device=device)[None]
+              * (1.0 + 0.01 * torch.arange(slabs, device=device)[:, None]))
+        (i0, i1), (w0, w1), _ = tent_taps(qy, ny)
+        taps.append(torch.stack([w0, w1, i0.float(), i1.float()],
+                                -1).contiguous())
+    scale = torch.sort(1.0 + 29.0 * rand(slabs)).values
+    t_start = 20.0 * rand(height, width)
+    t_stop = t_start + 3.0 + 17.0 * rand(height, width)
+    miss = rand(height, width) < 0.1
+    t_start = torch.where(miss, float("inf"), t_start).contiguous()
+    t_stop = torch.where(miss, float("-inf"), t_stop).contiguous()
+    sec = (1.0 + 5.0 * rand(height, width)).contiguous()
+    lut = rand(128, 4)
+    lut[64:80, 3] = 1.0
+    return (mids, taps, scale, t_start, t_stop, sec, lut.contiguous(),
+            np.asarray([0.1, 0.9], np.float32), np.float32(0.75))
+
+
+def phase_levels(device, size=(1920, 1080)):
+    """``phase_levels``: K1 and K3 past 8 levels (their level tables
+    hold every level a scene can have): seeded 1080p chunks of 9 and 12
+    levels through K1 at 1 and 4 channels and through K3, each against
+    its plain twin (K1 within TOL_K1 on every value, K3 bit for bit),
+    timed by CUDA-graph replay and events.  Returns (K1 results, K3
+    results)."""
+    k1, k3 = [], []
+    for n_levels in (9, 12):
+        ci = deep_chunk(n_levels, device, 900 + n_levels, *size[::-1])
+        log(f"levels {n_levels}: K1 mids shapes (C+1, S, ny, W):",
+            [tuple(m.shape) for m in ci["prep"].mids])
+        k1.append(k1_check(f"levels{n_levels}_1ch", ci, ci["prep"],
+                           ci["pt"], ci["tables_knots"], *size))
+        prep_c, pt_c, tables_c = seeded_channels_chunk(
+            ci, 950 + n_levels, device, 4)
+        k1.append(k1_check(f"levels{n_levels}_4ch", ci, prep_c, pt_c,
+                           tables_c, *size))
+        del ci, prep_c
+        k3.append(k3_check(f"levels{n_levels}", deep_k3_inputs(
+            n_levels, device, 970 + n_levels, *size[::-1])))
+    return k1, k3
+
+
+def _serve_get(base, path, timeout=600):
+    """One GET; (status, body, host ms)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(base + path, timeout=timeout) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, body, round((time.perf_counter() - t0) * 1e3, 3)
+
+
+def phase_serve(device, card, size=(1920, 1080),
+                exa=REPO / "build" / "cli_exajet256" / "e.exa"):
+    """``phase_serve``: the port's web viewer (``viewer.serve``) on the
+    ``.exa`` that ``phase_cli_exajet256`` wrote (exajet256: 1,981,414
+    cells), at 1920x1080 with ``device="cuda"``, behind a
+    ThreadingHTTPServer on 127.0.0.1 in this process (rendering on its
+    handler threads), through real HTTP requests: ``/``, the orbit pose
+    (frames 0-2: shear-warp, K6, K1, K2a, K2b), an axis view (frames 0,
+    1), a fly pose, the clipbox golden's box (K3), ``gsdvr=1`` (K4), an
+    iso value at 0.524 of the value range, ``tron=1`` (two frames),
+    ``clock=0.05`` and ``/xf``.  Every response 200, every frame a
+    1920x1080 PNG with lit pixels; orbit frame 0 and clip frame 0 held
+    to a ``plain_kernels`` ViewerState's under the golden gate.  Logs
+    each request's host ms and the peak MB.  Returns the record."""
+    import io
+    import threading
+    from http.server import ThreadingHTTPServer
+    from urllib.parse import urlencode
+
+    import torch
+
+    from owlexabrick_tpu_torch.utils.png import read_png
+    from owlexabrick_tpu_torch.viewer import serve
+
+    w, h = size
+    t0 = time.perf_counter()
+    state = serve.ViewerState(str(exa), w, h, device=device)
+    rec = dict(row="serve_exajet256", card=card, size=[w, h],
+               state_s=round(time.perf_counter() - t0, 3), requests=[])
+    vmax = float(state.value_range[1])
+    lo, ext = state.world_lo, state.world_hi - state.world_lo
+    # the tilted bench eye (0.9n, 0.8n, 2.2n) at the center, as a fly pose
+    eye = lo + np.asarray([0.9, 0.8, 2.2]) * ext
+    fly = dict(ex=eye[0], ey=eye[1], ez=eye[2], ax=state.center[0],
+               ay=state.center[1], az=state.center[2])
+    clip = dict(clip=1, cx0=CLIP_LO[0], cy0=CLIP_LO[1], cz0=CLIP_LO[2],
+                cx1=CLIP_HI[0], cy1=CLIP_HI[1], cz1=CLIP_HI[2])
+    queries = [
+        ("orbit_0", dict(frame=0)), ("orbit_1", dict(frame=1)),
+        ("orbit_2", dict(frame=2)),
+        ("axis_0", dict(theta=0, phi=0, frame=0)),
+        ("axis_1", dict(theta=0, phi=0, frame=1)),
+        ("fly_0", dict(fly, frame=0)),
+        ("clip_0", dict(clip, frame=0)),
+        ("gsdvr_0", dict(gsdvr=1, frame=0)),
+        ("iso_0", dict(iso=ISO_FRAC * vmax, frame=0)),
+        ("tron_0", dict(tron=1, frame=0)), ("tron_1", dict(tron=1, frame=1)),
+        ("clock_0", dict(fly, clock=0.05, frame=0)),
+    ]
+    server = ThreadingHTTPServer(("127.0.0.1", 0), type(
+        "Handler", (serve._Handler,), {"state": state}))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    pngs = {}
+    try:
+        status, body, ms = _serve_get(base, "/")
+        rec["requests"].append(dict(path="/", status=status, ms=ms))
+        if status != 200 or b"<canvas" not in body:
+            raise SystemExit(f"serve: / answered {status}")
+        for name, kw in queries:
+            q = dict(theta=0.5, phi=0.3, dist=1.2, lo=0, hi=vmax)
+            q.update(kw)
+            torch.cuda.reset_peak_memory_stats()
+            status, body, ms = _serve_get(base, "/frame?" + urlencode(q))
+            r = dict(path=name, status=status, ms=ms, peak_mb=round(
+                torch.cuda.max_memory_allocated() / 1e6, 1))
+            rec["requests"].append(r)
+            log("serve request:", json.dumps(r))
+            if status != 200:
+                raise SystemExit(f"serve: /frame {name} answered {status}: "
+                                 f"{body[:2000]!r}")
+            img = read_png(io.BytesIO(body))
+            if img.shape != (h, w, 4) or not (img[..., :3] > 16).any():
+                raise SystemExit(f"serve: /frame {name} gave {img.shape}, "
+                                 f"lit={bool((img[..., :3] > 16).any())}")
+            pngs[name] = (q, img)
+        status, body, ms = _serve_get(base, "/xf?" + urlencode(
+            dict(theta=0.5, phi=0.3, dist=1.2, lo=0, hi=vmax)))
+        rec["requests"].append(dict(path="/xf", status=status, ms=ms))
+        if status != 200 or len(body) != 128 * 4:
+            raise SystemExit(f"serve: /xf answered {status}, {len(body)} B")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise SystemExit("serve: the server thread did not stop")
+    del state
+    torch.cuda.empty_cache()
+    # the PNG encoding a request pays (utils.png.write_png on the host)
+    from owlexabrick_tpu_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    write_png(io.BytesIO(), pngs["orbit_0"][1])
+    rec["png_encode_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    plain = serve.ViewerState(str(exa), w, h, device=device,
+                              plain_kernels=True)
+    for name in ("orbit_0", "clip_0"):
+        q, img = pngs[name]
+        t0 = time.perf_counter()
+        want = read_png(io.BytesIO(plain.render(
+            {k: [str(v)] for k, v in q.items()})))
+        rec[f"{name}_plain_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        rec[f"{name}_gate"] = _gate(f"{name} vs plain", img, want,
+                                    phase="serve")
+    log("serve:", json.dumps(rec))
+    return rec
+
+
+def _mesh_rank(rank, world, port, in_path, out_dir, device):
+    """One rank of ``phase_mesh`` (spawned): gloo, every rank on
+    ``device``; each case's mesh, its frame's host ms, peak MB, band
+    bytes and K1 / K6 launches, and the digest of its image (rank 0 also
+    writes the image)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from owlexabrick_tpu_torch.parallel import mesh as M
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(torch.device(device))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out_dir = pathlib.Path(out_dir)
+    recs = {}
+    try:
+        cases = torch.load(in_path, weights_only=False)
+        for name, case in cases.items():
+            reset_launch_counts()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            band_bytes = 0
+            if case["mode"] == "z":
+                mesh = M.make_band_mesh(case["n_bands"], device=device)
+                band = M.shard_bands(mesh, case["stacked"])
+                band_bytes = nbytes(*band["vals"], *band["masks"],
+                                    band["zranges"])
+                f = M.make_band_sharded_slab_renderer(
+                    mesh, case["cfg"], case["meta"], case["w"], case["h"])
+                args = (band, case["fs"], *case["camera"])
+            elif case["mode"] == "pixel_bands":
+                mesh = M.make_mesh(case["n_px"], case["n_spp"],
+                                   device=device)
+                f = M.make_sharded_slab_renderer(mesh, case["cfg"],
+                                                 case["w"], case["h"])
+                args = (M.replicate(mesh, case["grids"]), case["fs"],
+                        *case["camera"], case["key"])
+            else:
+                mesh = M.make_mesh(case["n_px"], case["n_spp"],
+                                   device=device)
+                f = M.make_sharded_renderer(mesh, case["cfg"])
+                args = (M.replicate(mesh, case["scene"]), case["fs"],
+                        M.replicate(mesh, case["surf"]),
+                        *M.shard_rays(mesh, case["o"], case["d"]),
+                        case["key"])
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            out = f(*args)
+            sync()
+            ms = round((time.perf_counter() - t0) * 1e3, 3)
+            img = out.cpu().numpy()
+            recs[name] = dict(ms=ms, launches={
+                k: v for k, v in launch_counts().items() if v},
+                peak_mb=(round(torch.cuda.max_memory_allocated() / 1e6, 1)
+                         if cuda else None),
+                band_bytes=band_bytes, backend=mesh.backend,
+                digest=hashlib.sha256(img.tobytes()).hexdigest())
+            if rank == 0:
+                np.save(out_dir / f"{name}.npy", img)
+            del args, out
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def phase_mesh(setups, device, card, world=2, size=(1920, 1080),
+               spp_size=(480, 270)):
+    """``phase_mesh``: the multi-device modes (``parallel.mesh``) on
+    ``world`` gloo ranks sharing cuda:0 (spawned; their exchanges staged
+    through host memory): a 2x1 px mesh of the exact path (the 64^3
+    headline scene and bench camera at 1920x1080), a 1x2 spp mesh of it
+    at 480x270, a 2-band pixel mesh and a 2-band z mesh of blobs256 at
+    1920x1080 under the bench row's SlabConfig.  Each held to the same
+    work done in this process on the card: px / spp by the per-tile,
+    per-spp loop at rtol 1e-5 with atol 1e-6, the pixel bands by
+    ``render_slabs`` with the same jitter shifts at the same tolerance,
+    the z bands swept in turn and combined by the same prefix 'over'
+    within 1e-6; every rank's image equal.  Logs the z-band image's
+    distance to the unbanded frame (no gate: the JAX per-band merge is
+    what is ported), per-rank frame ms, peak MB and band bytes, and the
+    backend.  Returns (the ranks' launches, record)."""
+    import dataclasses
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.native import native_build_bricks_flat
+    from owlexabrick_tpu_torch.parallel import mesh as M
+    from owlexabrick_tpu_torch.render import prng
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.dvr import RenderConfig
+    from owlexabrick_tpu_torch.render.slabs import (
+        permute_camera, render_slabs)
+    from owlexabrick_tpu_torch.render.surfaces import SurfaceData
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    work = REPO / "build" / "mesh"
+    work.mkdir(parents=True, exist_ok=True)
+    rec = dict(row="mesh", card=card, world=world)
+    t0 = time.perf_counter()
+    rec["full_grid_bytes"] = nbytes(*setups["blobs256"][0].vals,
+                                    *setups["blobs256"][0].masks,
+                                    setups["blobs256"][0].zranges)
+    n_e = int(setups["headline"][4]["n"])
+    host, _, _, _, _ = exact_scene(n_e, device)
+    vmax_e = float(setups["headline"][4]["value_max"])
+    grids, cam, fs, cfg, meta = setups["blobs256"]
+    pos, dir00, du, dv = permute_camera(cam, grids.axis)
+    cfg_b = dataclasses.replace(cfg, flip=bool(dir00[0] < 0))
+    (w, h), rank_dev = size, f"{device.type}:0"
+    cells = volume_to_cells(synthetic_volume(int(meta["n"])), 0.004, 3)
+    bricks, ids = native_build_bricks_flat(cells[0], cells[1])
+    stacked, bmeta = M.build_band_grids(
+        bricks, np.asarray(cells[2], np.float32)[ids][None], 2,
+        cfg_b.nslabs)
+    del cells
+    cases, rays = {}, {}
+    for name, ((we, he), n_px, n_spp) in (("px_exact", (size, 2, 1)),
+                                          ("spp_exact", (spp_size, 1, 2))):
+        fs_e = bench_frame_state(n_e, vmax_e, we, he)
+        c = n_e / 2
+        cam_e = Camera.look_at(from_=[c, c, 2.2 * n_e], at=[c, c, c],
+                               up=[0, 1, 0], fovy_degrees=45.0, width=we,
+                               height=he)
+        o, d = cam_e.rays(we, he)
+        rays[name] = (o, d)
+        cases[name] = dict(mode="px", n_px=n_px, n_spp=n_spp, scene=host,
+                           fs=fs_e, surf=SurfaceData.empty("cpu"), o=o, d=d,
+                           key=prng.prng_key(11),
+                           cfg=RenderConfig(num_channels=1))
+    cases["bands_blobs256"] = dict(
+        mode="pixel_bands", n_px=2, n_spp=1, grids=grids.to("cpu"), fs=fs,
+        camera=(pos, dir00, du, dv), key=prng.prng_key(12), cfg=cfg_b,
+        w=w, h=h)
+    cases["z_blobs256"] = dict(
+        mode="z", n_bands=2, stacked=stacked, meta=bmeta, fs=fs,
+        camera=(pos, dir00, du, dv), cfg=cfg_b, w=w, h=h)
+    torch.save(cases, work / "cases.pt")
+    rec["inputs_s"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(_mesh_rank, args=(world, port, str(work / "cases.pt"),
+                                         str(work), rank_dev),
+                       nprocs=world, join=True, start_method="spawn")
+    rec["ranks_s"] = round(time.perf_counter() - t0, 3)
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(world)]
+    # bytes each rank sends per frame, from the shapes (two ranks): the
+    # px gather and the spp sum send one rank's share of the image, the z
+    # prefix one (P, 4) step and the back band's broadcast (P, 4)
+    for name, c in cases.items():
+        if c["mode"] == "px":
+            p_ = c["o"].shape[0] * 3 * 4
+            sent = p_ // 2 if c["n_px"] == 2 else p_
+        elif c["mode"] == "pixel_bands":
+            sent = c["w"] * c["h"] * 4 * 4 // 2
+        else:
+            sent = c["w"] * c["h"] * 4 * 4
+        rec.setdefault(name, {})["sent_mb_per_rank"] = round(sent / 1e6, 3)
+    rec["ranks"] = ranks
+    log("mesh ranks:", json.dumps(ranks))
+    total = {k: 0 for k in launch_counts()}
+    for r in ranks:
+        for name, res in r.items():
+            for k, v in res["launches"].items():
+                total[k] += v
+            if res["digest"] != ranks[0][name]["digest"]:
+                raise SystemExit(f"mesh {name}: the ranks' images differ")
+            if res["backend"] != "gloo":
+                raise SystemExit(f"mesh {name}: backend {res['backend']}")
+        for name in ("bands_blobs256", "z_blobs256"):
+            if min(r[name]["launches"].get(k, 0) for k in ("K1", "K6")) <= 0:
+                raise SystemExit(f"mesh {name}: a rank launched no K1 or K6:"
+                                 f" {r[name]['launches']}")
+
+    # the same work in this process on the card
+    def check(name, one, one_ms, rtol, atol):
+        got = np.load(work / f"{name}.npy")
+        want = one.cpu().numpy()
+        err = float(np.abs(got - want).max())
+        ok = bool(np.allclose(got, want, rtol=rtol, atol=atol)
+                  and np.isfinite(got).all())
+        rec[name].update(max_abs_err=err, one_process_ms=one_ms, ok=ok)
+        log(f"mesh {name}: max |ranks - one process| {err:.3g} "
+            f"({'pass' if ok else 'FAIL'}), one process {one_ms} ms")
+        if not ok:
+            raise SystemExit(f"mesh {name} differs from one process: {err}")
+        return got
+
+    dev = torch.device(device)
+    for name in ("px_exact", "spp_exact"):
+        c = cases[name]
+        o, d = rays[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = M.sharded_render_reference(
+            host.to(dev), c["fs"], SurfaceData.empty(dev), c["cfg"],
+            torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            c["key"], c["n_px"], c["n_spp"])
+        torch.cuda.synchronize()
+        check(name, one, round((time.perf_counter() - t0) * 1e3, 3), 1e-5,
+              1e-6)
+    t0 = time.perf_counter()
+    one = M.sharded_slab_reference(grids, fs, cfg_b, pos, dir00, du, dv,
+                                   prng.prng_key(12), w, h, 2)
+    torch.cuda.synchronize()
+    check("bands_blobs256", one, round((time.perf_counter() - t0) * 1e3, 3),
+          1e-5, 1e-6)
+    t0 = time.perf_counter()
+    one = M.band_sharded_reference(
+        [M.band_of(stacked, b, dev) for b in range(2)], fs, cfg_b, bmeta,
+        pos, dir00, du, dv, w, h)
+    torch.cuda.synchronize()
+    zb = check("z_blobs256", one, round((time.perf_counter() - t0) * 1e3, 3),
+               0.0, 1e-6)
+    full = render_slabs(grids, fs, cfg_b, pos, dir00, du, dv, w, h)
+    rec["z_blobs256"]["vs_unbanded_max_abs"] = float(
+        np.abs(zb - full.cpu().numpy()).max())
+    log(f"mesh z_blobs256 vs the unbanded render_slabs frame (no gate): "
+        f"max {rec['z_blobs256']['vs_unbanded_max_abs']:.4g}")
+    log("mesh:", json.dumps(rec))
+    log("launches on the mesh path (ranks):", json.dumps(total))
+    return total, rec
+
+
 def profile_once(fn, trace_path=None):
     """One ``fn()`` (ending in a synchronize) under torch.profiler:
     (device ms, device launches, the port's kernels' {id: (ms, n)}, the
@@ -2678,6 +3162,21 @@ def main() -> int:
     # the front door: the Quick start chain through the port's CLI
     cli, _ = phase_cli_exajet256(dev, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # K1 and K3 past 8 levels, the web viewer, the multi-device modes
+    lv_k1, lv_k3 = phase_levels(dev)
+    k1 += lv_k1
+    k3 += lv_k3
+    reset_launch_counts()
+    phase_serve(dev, card)
+    served = launch_counts()
+    log("launches on the serve path:", json.dumps(served))
+    if min(served[k] for k in ("K1", "K2a", "K2b", "K3", "K4", "K6")) <= 0:
+        raise SystemExit(f"the serve path left a kernel unlaunched: "
+                         f"{served}")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    meshed, _ = phase_mesh(setups, dev, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
         # no Chrome traces: a 1080p einsum-lane frame's is tens of MB
@@ -2696,7 +3195,8 @@ def main() -> int:
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
     src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
     launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k] + surf[k]
-                + contour[k] + cli[k] for k in aligned}
+                + contour[k] + cli[k] + served[k] + meshed[k]
+                for k in aligned}
 
     def entry(name, source, replaces, key, err, res, prefix=""):
         # one PyTorch call computes K5's and K6's functions (grid_sample),

@@ -71,7 +71,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxLevels = 8;
+// The per-level table (mids pointer, ny, cw, lattice y origin) is passed
+// by value and holds every level of the grids: a cell's width is
+// 1 << level over int32 corners (core/types.py), so no scene has more than
+// 31 distinct levels (0..30), and 32 entries hold any of them.  The
+// per-row taps in shared memory grow with the count: rpb * L float4
+// (27 rows * 16 levels = 6.9 KB at 1080p), and a carry that no longer
+// fits beside them moves to the global scratch, so the launch does not
+// fail.
+constexpr int kMaxLevels = 32;
 constexpr int kMaxCh = 10;  // MAX_CHANNELS of the data model
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;

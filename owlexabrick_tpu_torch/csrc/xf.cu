@@ -131,7 +131,7 @@ classify_field_kernel(const float* __restrict__ sw,
 // K3 from the mids: the y stage, the clip masks and the composite of a
 // chunk in one pass.
 //
-// Per occupied level l (at most kLevels, in level order): mids (2, S,
+// Per occupied level l (at most kMaxLevels, in level order): mids (2, S,
 // ny_l, W), the value channel then the mask, z- and x-lerped (K6), and
 // taps (S, H) float4 (w0, w1, r0, r1): the y tent's weights and rows at
 // every slab and screen row (mids.py::tent_taps, rows stored as floats).
@@ -141,7 +141,13 @@ classify_field_kernel(const float* __restrict__ sw,
 //   sw  = 0 unless scale[s] < t_stop[y, x], then unless >= t_start[y, x]
 // then K4's classification and opacity and the front-to-back composite.
 
-constexpr int kLevels = 8;  // levels per launch (kernels.MAX_LEVELS)
+// Levels per launch (kernels.MAX_LEVELS): the by-value table holds every
+// level a scene can have (cell widths are 1 << level over int32 corners,
+// so at most 31 levels).  Up to kUnrolled levels are unrolled at compile
+// time; more run in groups of kUnrolled, in level order.
+constexpr int kMaxLevels = 32;
+constexpr int kUnrolled = 8;
+constexpr int kGrouped = kUnrolled + 1;  // the template argument for > 8
 constexpr int kCols = 2;    // adjacent columns per thread (a float2)
 constexpr int kBlockX = 32;  // columns per block
 constexpr int kBlockRows = kThreads * kCols / kBlockX;  // 16
@@ -153,7 +159,7 @@ struct MidsLevel {
 };
 
 struct MidsParams {
-  MidsLevel lv[kLevels];
+  MidsLevel lv[kMaxLevels];
   const float* scale;    // (S,)
   const float* t_start;  // (H, W) or null
   const float* t_stop;   // (H, W) or null
@@ -218,10 +224,39 @@ __device__ __forceinline__ float2 load_cols(const float* __restrict__ src,
   return make_float2(__ldg(src), __ldg(src + min(1, n_ok - 1)));
 }
 
+// Level l's share of one slab's sums at the thread's two columns: its
+// taps and its 4 float2 mid loads started before any lerp, added to sw
+// and swv in level order.  The grouped path's body only: the unrolled
+// path keeps its own copy of this loop body, because calling this
+// function there ran slower on the card for the same bits (PERF.md,
+// section 6).
+__device__ __forceinline__ void add_level(const MidsParams& p, int l, int s,
+                                          int y, int x0, bool vec, int n_ok,
+                                          float (&sw)[kCols],
+                                          float (&swv)[kCols]) {
+  const int W = p.W;
+  const float* __restrict__ mids = p.lv[l].mids;
+  const int plane = p.lv[l].ny * W;  // one slab's (ny, W)
+  const int comp = plane * p.S;      // one component's (S, ny, W)
+  const float4 tp = __ldg(p.lv[l].taps + s * p.H + y);
+  const int o0 = s * plane + (int)tp.z * W + x0;
+  const int o1 = s * plane + (int)tp.w * W + x0;
+  const float2 v0 = load_cols(mids + o0, vec, n_ok);
+  const float2 v1 = load_cols(mids + o1, vec, n_ok);
+  const float2 m0 = load_cols(mids + comp + o0, vec, n_ok);
+  const float2 m1 = load_cols(mids + comp + o1, vec, n_ok);
+  swv[0] = swv[0] + (tp.x * v0.x + tp.y * v1.x);
+  swv[1] = swv[1] + (tp.x * v0.y + tp.y * v1.y);
+  sw[0] = sw[0] + (tp.x * m0.x + tp.y * m1.x);
+  sw[1] = sw[1] + (tp.x * m0.y + tp.y * m1.y);
+}
+
 // K3: kCols adjacent columns per thread, 16 threads across a block's 32
-// columns and 16 rows; one slab at a time, the L levels unrolled at
-// compile time (the level table's entries read as constants), each
-// level's taps and its 4 float2 mid loads started before any lerp.  The
+// columns and 16 rows; one slab at a time.  L <= kUnrolled: the L levels
+// unrolled at compile time (the level table's entries read as
+// constants).  L == kGrouped: any count, in groups of kUnrolled levels,
+// each group unrolled and its tail guarded, so the sums run over the
+// levels in the same order and the whole sum is classified once.  The
 // taps are shared by the thread's two pixels and, within a warp (2
 // rows), by its 16 threads; a block's rows share a coarse level's mid
 // rows through L1.  Grid (ceil(W / 32), ceil(H / 16)).
@@ -246,22 +281,31 @@ composite_mids_kernel(const __grid_constant__ MidsParams p) {
     q[c] = pixel_start(p, (size_t)y * W + x0 + min(c, n_ok - 1));
   for (int s = 0; s < S; ++s) {
     float sw[kCols] = {}, swv[kCols] = {};
+    if constexpr (L <= kUnrolled) {
 #pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float* __restrict__ mids = p.lv[l].mids;
-      const int plane = p.lv[l].ny * W;  // one slab's (ny, W)
-      const int comp = plane * S;        // one component's (S, ny, W)
-      const float4 tp = __ldg(p.lv[l].taps + s * H + y);
-      const int o0 = s * plane + (int)tp.z * W + x0;
-      const int o1 = s * plane + (int)tp.w * W + x0;
-      const float2 v0 = load_cols(mids + o0, vec, n_ok);
-      const float2 v1 = load_cols(mids + o1, vec, n_ok);
-      const float2 m0 = load_cols(mids + comp + o0, vec, n_ok);
-      const float2 m1 = load_cols(mids + comp + o1, vec, n_ok);
-      swv[0] = swv[0] + (tp.x * v0.x + tp.y * v1.x);
-      swv[1] = swv[1] + (tp.x * v0.y + tp.y * v1.y);
-      sw[0] = sw[0] + (tp.x * m0.x + tp.y * m1.x);
-      sw[1] = sw[1] + (tp.x * m0.y + tp.y * m1.y);
+      for (int l = 0; l < L; ++l) {
+        const float* __restrict__ mids = p.lv[l].mids;
+        const int plane = p.lv[l].ny * W;  // one slab's (ny, W)
+        const int comp = plane * S;        // one component's (S, ny, W)
+        const float4 tp = __ldg(p.lv[l].taps + s * H + y);
+        const int o0 = s * plane + (int)tp.z * W + x0;
+        const int o1 = s * plane + (int)tp.w * W + x0;
+        const float2 v0 = load_cols(mids + o0, vec, n_ok);
+        const float2 v1 = load_cols(mids + o1, vec, n_ok);
+        const float2 m0 = load_cols(mids + comp + o0, vec, n_ok);
+        const float2 m1 = load_cols(mids + comp + o1, vec, n_ok);
+        swv[0] = swv[0] + (tp.x * v0.x + tp.y * v1.x);
+        swv[1] = swv[1] + (tp.x * v0.y + tp.y * v1.y);
+        sw[0] = sw[0] + (tp.x * m0.x + tp.y * m1.x);
+        sw[1] = sw[1] + (tp.x * m0.y + tp.y * m1.y);
+      }
+    } else {
+      for (int g = 0; g < p.n_levels; g += kUnrolled) {
+#pragma unroll
+        for (int i = 0; i < kUnrolled; ++i)
+          if (g + i < p.n_levels)
+            add_level(p, g + i, s, y, x0, vec, n_ok, sw, swv);
+      }
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
@@ -339,7 +383,7 @@ extern "C" int owx_xf_classify(const void* u, const void* lut, void* out,
   return (int)cudaGetLastError();
 }
 
-// K3 from the mids, one launch for a chunk's n_levels <= kLevels occupied
+// K3 from the mids, one launch for a chunk's n_levels <= kMaxLevels occupied
 // levels (0 gives a transparent chunk): per level l, mids[l] (2, S,
 // ny[l], W) and taps[l] (S, H, 4); scale (S,), t_start / t_stop (H, W)
 // or null, sec (H, W), lut (n, 4), out (4, H, W): r, g, b, T, all
@@ -352,7 +396,7 @@ extern "C" int owx_composite_mids(const void* const* mids,
                                   void* out, int S, int H, int W, int n,
                                   float lo, float hi, float dz,
                                   void* stream) {
-  if (n_levels < 0 || n_levels > kLevels || (n_levels && (!mids || !taps ||
+  if (n_levels < 0 || n_levels > kMaxLevels || (n_levels && (!mids || !taps ||
       !ny)) || !scale || !sec || !lut || !out || S < 1 || S > kMaxSlabs ||
       H < 1 || W < 1 || n < 2 || n > kMaxTexels ||
       (long long)S * H > 0x7fffffffLL ||
@@ -394,6 +438,8 @@ extern "C" int owx_composite_mids(const void* const* mids,
     OWX_K3_CASE(4) OWX_K3_CASE(5) OWX_K3_CASE(6) OWX_K3_CASE(7)
     OWX_K3_CASE(8)
 #undef OWX_K3_CASE
+    default:
+      composite_mids_kernel<kGrouped><<<grid, kThreads, 0, st>>>(p);
   }
   return (int)cudaGetLastError();
 }

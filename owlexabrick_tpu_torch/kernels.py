@@ -21,8 +21,10 @@ import tempfile
 import torch
 
 # must match csrc/sweep.cu, csrc/warp.cu and csrc/xf.cu (K1 takes
-# core.constants.MAX_CHANNELS scalar channels)
-MAX_LEVELS = 8
+# core.constants.MAX_CHANNELS scalar channels).  K1's and K3's level
+# tables hold every level a scene can have: cell widths are 1 << level
+# over int32 corners, so at most 31 levels (0..30).
+MAX_LEVELS = 32
 MAX_COLOR_COMPONENTS = 4  # K2a / K2b: rgba or rgb
 MAX_TEXELS = 128
 MAX_SLABS = 256
@@ -149,6 +151,14 @@ def load():
         lib.owx_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def check_levels(name: str, n_levels: int, least: int = 1) -> None:
+    """Raise ValueError unless kernel ``name`` takes ``n_levels`` levels
+    (``least``..``MAX_LEVELS``)."""
+    if not least <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"{n_levels} levels; {name} takes "
+                         f"{least}..{MAX_LEVELS} (MAX_LEVELS)")
 
 
 def error_string(err: int) -> str:

@@ -195,9 +195,7 @@ def composite_mids_cuda(mids, ytaps, scale, t_start, t_stop, sec, lut,
     n = int(lut.shape[0])
     if not 1 <= s_ <= kernels.MAX_SLABS:
         raise ValueError(f"{s_} slabs; K3 takes 1..{kernels.MAX_SLABS}")
-    if len(mids) > kernels.MAX_LEVELS:
-        raise ValueError(f"{len(mids)} levels; K3 takes at most "
-                         f"{kernels.MAX_LEVELS}")
+    kernels.check_levels("K3", len(mids), least=0)
     if not 2 <= n <= kernels.MAX_TEXELS:
         raise ValueError(f"{n} LUT texels; K3 takes 2..{kernels.MAX_TEXELS}")
     for m, tp in zip(mids, ytaps):

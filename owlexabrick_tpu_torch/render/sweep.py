@@ -502,8 +502,7 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
     n_lv = len(prep.mids)
     n_ch = prep.mids[0].shape[0] - 1
     s_ = prep.y_pos.shape[0]
-    if not 1 <= n_lv <= kernels.MAX_LEVELS:
-        raise ValueError(f"{n_lv} levels; K1 takes 1..{kernels.MAX_LEVELS}")
+    kernels.check_levels("K1", n_lv)
     if not 1 <= n_ch <= MAX_CHANNELS:
         raise ValueError(f"{n_ch} channels; K1 takes 1..{MAX_CHANNELS}")
     tr, tc = tile_shape(h, w, tiles, adaptive_stride)

@@ -1,8 +1,11 @@
 """PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
-surface stop), K2a/K2b (csrc/warp.cu), K3 (from the mids), K4, K5
-(csrc/xf.cu) and K6 (csrc/mids.cu) against their plain-torch versions,
-and the port's main path, einsum lane and iso path and the offline
-CLI's ``--fast`` runs on CUDA against the same paths on the CPU.  Marked ``cuda``; each test skips where no card
+surface stop, at 2 to 16 levels), K2a/K2b (csrc/warp.cu), K3 (from the
+mids, at 1 to 12 levels), K4, K5 (csrc/xf.cu) and K6 (csrc/mids.cu)
+against their plain-torch versions, and the port's main path, einsum
+lane and iso path, the offline CLI's ``--fast`` runs and the web
+viewer's frames (``aox=1`` among them) on CUDA against the same paths on
+the CPU, and a 2-rank gloo mesh whose ranks share the card against the
+same work in one process.  Marked ``cuda``; each test skips where no card
 is present (the check runs inside the fixture, never at import).
 Imports no jax, so it also runs where only torch is installed; there,
 skip the suite's conftest, which sets up jax:
@@ -19,7 +22,7 @@ import torch
 from owlexabrick_tpu_torch.render import sweep as PS
 
 from torch_sweep_inputs import (
-    CWS, H, K3_MIDS_CASES, ORG_Y, TILES, W, k3_mids_inputs, k6_level_cases,
+    H, K3_MIDS_CASES, TILES, W, deep_levels, k3_mids_inputs, k6_level_cases,
     seeded_inputs)
 
 pytestmark = pytest.mark.cuda
@@ -32,12 +35,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES):
-    """K1 and its plain twin on one seeded chunk; returns K1's launch
-    shape after checking every output value within 1e-5."""
+def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
+                      levels=None):
+    """K1 and its plain twin on one seeded chunk (``levels``:
+    ``deep_levels``' table, else two levels); returns K1's launch shape
+    after checking every output value within 1e-5."""
     from owlexabrick_tpu_torch.render.slabs import compress_pwl
 
-    d = seeded_inputs(5, channels=channels)
+    d = seeded_inputs(5, channels=channels, levels=levels)
     luts_np = d.get("luts", [d["lut"]])
     mids = [torch.from_numpy(np.concatenate([v.reshape(-1, *m.shape),
                                              m[None]])).to(cuda)
@@ -47,9 +52,11 @@ def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES):
     knots = None if dense else compress_pwl(luts_np)
     assert dense or knots is not None
     prep = PS.prepare_chunk(
-        mids, ORG_Y, CWS, torch.from_numpy(d["y_pos"]).to(cuda), H, W,
+        mids, d["org_y"], d["cws"], torch.from_numpy(d["y_pos"]).to(cuda),
+        H, W,
         tiles=tiles, adaptive_stride=True,
-        tf_cull=([torch.from_numpy(v).to(cuda) for v in d["vr"]], (1, 1)))
+        tf_cull=([torch.from_numpy(v).to(cuda) for v in d["vr"]],
+                 (1,) * len(d["vr"])))
     live = torch.from_numpy(d["live"]).to(cuda)
     act_f, act_all_f = PS.combine_activity(prep, live, luts, dom,
                                            adaptive_stride=True)
@@ -92,6 +99,18 @@ def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES):
 def test_k1_matches_plain_version(cuda, dense, carry, stop, channels):
     shape = _k1_against_plain(cuda, dense, carry, stop, channels)
     assert shape["carry_on_chip"] == 1 and shape["cluster"] > 1
+
+
+@pytest.mark.parametrize("channels", [1, 4, 10])
+@pytest.mark.parametrize("n_levels", [9, 12, 16])
+def test_k1_many_levels_match_plain_version(cuda, n_levels, channels):
+    """More levels than K1's old table of 8: a seeded chunk of 9-16
+    levels at 1-10 channels launches (the per-row taps grow with the
+    level count; a carry that no longer fits beside them moves to the
+    global scratch) and matches its twin within 1e-5."""
+    shape = _k1_against_plain(cuda, False, True, True, channels,
+                              levels=deep_levels(n_levels))
+    assert shape["cluster"] > 1 and shape["smem_bytes"] > 0
 
 
 @pytest.mark.parametrize("carry", [False, True], ids=["fresh", "carried"])
@@ -220,7 +239,8 @@ def test_k4_matches_plain_version(cuda, shape):
 @pytest.mark.parametrize("case", sorted(K3_MIDS_CASES))
 def test_k3_mids_bit_equal_plain(cuda, case):
     """K3 from the mids (csrc/xf.cu) against composite_mids_reference on
-    the card, bit for bit: 1, 4 and 8 levels, W = 1000, a 2944 x 1624
+    the card, bit for bit: 1, 4, 8, 9 and 12 levels (past 8, the grouped
+    path), W = 1000, a 2944 x 1624
     lattice, an interval every pixel misses and none; one launch per
     call."""
     from owlexabrick_tpu_torch.render import classify as PC
@@ -639,3 +659,92 @@ def test_cli_fast_on_card_matches_cpu(cuda, tmp_path, case):
             assert all(fn.launches > 0 for fn in fns), case
     assert np.abs(imgs[0] - imgs[1]).max() <= 1
     assert (imgs[0][..., :3] > 8).any()
+
+
+def _viewer_query(**kw):
+    q = dict(theta=0.5, phi=0.3, dist=1.2, frame=0, field=0,
+             cmap="Paraview Cool Warm", customcm="", lo=0, hi=7, os=1,
+             dt=0.5, iso=0, gsiso=1, caxis="off", coff=0.5, clip=0, cx0=0,
+             cy0=0, cz0=0, cx1=1, cy1=1, cz1=1, gsdvr=0, skip=1)
+    q.update(kw)
+    return {k: str(v) for k, v in q.items()}
+
+
+@pytest.mark.parametrize("query", ["orbit", "clip", "iso", "aox"])
+def test_serve_frame_on_card_matches_cpu(cuda, tmp_path, query):
+    """The web viewer with ``device="cuda"``, served through a real
+    ThreadingHTTPServer on 127.0.0.1 (rendering on its handler thread),
+    against ``device="cpu"`` on the same query under the golden gate:
+    the tilted orbit pose, the clip box (K3), an iso value and one
+    ``aox=1`` frame (exact AO over the iso hits) at 48x32."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from io import BytesIO
+    from urllib.parse import urlencode
+
+    from owlexabrick_tpu_torch.render.classify import composite_mids_cuda
+    from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
+    from owlexabrick_tpu_torch.utils.png import golden_gate, read_png
+    from owlexabrick_tpu_torch.viewer import serve
+
+    from test_torch_cli import make_scene_dir
+
+    d = make_scene_dir(tmp_path)
+    kw = {"orbit": {}, "clip": dict(clip=1, cx0=0.3, cz1=0.8),
+          "iso": dict(iso=3.3), "aox": dict(iso=3.3, ao=1, aolen=4, aox=1)
+          }[query]
+    q = _viewer_query(**kw)
+    card = serve.ViewerState(str(d / "one.exa"), 48, 32, device="cuda")
+    handler = type("Handler", (serve._Handler,), {"state": card})
+    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    fn = composite_mids_cuda if query == "clip" else sweep_chunk_cuda
+    n0 = fn.launches
+    try:
+        url = (f"http://127.0.0.1:{server.server_address[1]}/frame?"
+               + urlencode(q))
+        with urllib.request.urlopen(url, timeout=300) as r:
+            assert r.status == 200
+            got = read_png(BytesIO(r.read()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=30)
+    assert fn.launches > n0
+    cpu = serve.ViewerState(str(d / "one.exa"), 48, 32, device="cpu")
+    want = read_png(BytesIO(cpu.render({k: [v] for k, v in q.items()})))
+    ok, dmax, exact = golden_gate(got, want)
+    assert ok, (query, dmax, exact)
+    assert (got[..., :3] > 8).any()
+
+
+def test_mesh_two_gloo_ranks_share_card(cuda, tmp_path):
+    """Two gloo ranks on ``cuda:0`` (the exchanges staged through host
+    memory): a 2x1 px mesh of the exact path, 2 pixel bands and 2 z
+    bands of the slab path, each rank's image equal to the same work in
+    one process on the card at the dry run's tolerances, and K1 and K6
+    launched in the ranks."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    from torch_mesh_ranks import free_port, one_process, port_cases, run
+
+    cases = port_cases("cuda:0")
+    torch.save(cases, tmp_path / "cases.pt")
+    mp.start_processes(run, args=(2, free_port(), str(tmp_path / "cases.pt"),
+                                  str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    for name, case in cases.items():
+        imgs = [np.load(tmp_path / f"{name}_r{r}.npy") for r in range(2)]
+        assert np.array_equal(imgs[0], imgs[1])
+        one = one_process(case).cpu().numpy()
+        tol = (dict(rtol=1e-4, atol=2e-5) if case["mode"] == "z"
+               else dict(rtol=1e-5, atol=1e-6))
+        np.testing.assert_allclose(imgs[0], one, **tol)
+    for r in range(2):
+        counts = json.loads((tmp_path / f"launches_r{r}.json").read_text())
+        assert counts["bands2"]["K1"] > 0 and counts["bands2"]["K6"] > 0
+        assert counts["z2"]["K1"] > 0 and counts["z2"]["K6"] > 0

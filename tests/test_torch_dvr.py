@@ -22,7 +22,6 @@ import pytest
 import torch
 
 from owlexabrick_tpu.bench_scene import synthetic_volume as ref_volume
-from owlexabrick_tpu.oracle import reference as oracle
 from owlexabrick_tpu.pipeline import scene_from_cells as ref_scene_from_cells
 from owlexabrick_tpu.render import dvr as R
 from owlexabrick_tpu.render.camera import Camera
@@ -34,6 +33,7 @@ from owlexabrick_tpu.tools.raw2cells import volume_to_cells as ref_cells
 from owlexabrick_tpu_torch import interop
 from owlexabrick_tpu_torch.core.constants import (
     REGION_ADVANCE_EPS, TERMINATION_THRESHOLD)
+from owlexabrick_tpu_torch.oracle import reference as oracle
 from owlexabrick_tpu_torch.render import dvr as P
 
 from conftest import EX2, EX3, EX4
@@ -249,10 +249,12 @@ def test_trace_dvr_allow_empty_cells(amr_fixture):
     want = _ref_trace(scene, fs, cfg, o, d, zero)
     got = _port_trace(scene, fs, cfg, o, d, zero)
     assert np.abs(want - got).max() <= 1e-5
+    port = interop.scene_from_reference(scene, "cpu")
+    port_fs = interop.frame_state_from_reference(fs)
     for i in range(o.shape[0]):
         np.testing.assert_allclose(got[i], oracle.trace_dvr_ray(
-            scene, fs, o[i], d[i], num_channels=1, allow_empty_cells=True),
-            rtol=5e-3, atol=5e-3)
+            port, port_fs, o[i], d[i], num_channels=1,
+            allow_empty_cells=True), rtol=5e-3, atol=5e-3)
 
 
 @pytest.mark.parametrize("name", list(TEXTS))
@@ -262,9 +264,11 @@ def test_trace_dvr_matches_oracle(amr_fixture, name):
     ref, fs, o, d, _ = _fixture_scene(amr_fixture, name)
     got = _port_trace(ref, fs, R.RenderConfig(num_channels=1), o, d,
                       np.zeros(o.shape[0], np.float32))
+    port = interop.scene_from_reference(ref, "cpu")
+    port_fs = interop.frame_state_from_reference(fs)
     for i in range(o.shape[0]):
         np.testing.assert_allclose(
-            got[i], oracle.trace_dvr_ray(ref, fs, o[i], d[i],
+            got[i], oracle.trace_dvr_ray(port, port_fs, o[i], d[i],
                                          num_channels=1),
             rtol=5e-3, atol=5e-3, err_msg=f"pixel {i}")
 

@@ -194,7 +194,7 @@ def test_k6_plain_equals_lerp_x(case):
 
 @pytest.mark.parametrize("case", ["levels1", "levels4", "levels8",
                                   "ragged_w", "all_infinite",
-                                  "no_interval"])
+                                  "no_interval", "levels9", "levels12"])
 def test_mids_fields_reference_matches_numpy(case):
     """K3's y stage and clip masks in plain torch against the same
     float32 arithmetic in numpy (per level in order, acc + (w0 a + w1

@@ -12,15 +12,26 @@ ORG_Y = (0.0, 2.0)
 NY = (24, 8)
 
 
-def seeded_inputs(seed, channels=1):
+def deep_levels(n_levels):
+    """(ny, cw, lattice y origin) of ``n_levels`` levels of cell widths
+    1, 2, 4, ...: each lattice spans the chunk's rows (y up to ~22) and
+    a row past both ends."""
+    return [(-(-24 // (1 << lv)) + 2, float(1 << lv), -1.0)
+            for lv in range(n_levels)]
+
+
+def seeded_inputs(seed, channels=1, levels=None):
     """Seeded chunk inputs; ``channels`` > 1 adds channels 1.. (their
     values, LUTs, domains and TF-cull bounds) from a second stream, so
     channel 0's inputs are the same at every count.  ``mids`` holds per
     level (channel values, mask); the values are (S, ny, W) for one
-    channel, (C, S, ny, W) for more."""
+    channel, (C, S, ny, W) for more.  ``levels``: (ny, cw, origin y) per
+    level (``deep_levels``), else the two levels NY, CWS, ORG_Y; ``cws``
+    and ``org_y`` hold them."""
     rng = np.random.default_rng(seed)
+    nys = NY if levels is None else tuple(lv[0] for lv in levels)
     mids = []
-    for ny in NY:
+    for ny in nys:
         m = rng.uniform(0.0, 1.0, (S, ny, W)).astype(np.float32)
         # empty patches so activity differs per tile
         m[:, :, rng.integers(0, W - 12):][:, :ny // 3] = 0.0
@@ -33,7 +44,7 @@ def seeded_inputs(seed, channels=1):
     live = rng.uniform(size=S) < 0.85
     live[0] = True
     vr = []
-    for ny in NY:
+    for ny in nys:
         lo = rng.uniform(0.0, 1.0, (1, S, ny, 1)).astype(np.float32)
         hi = lo + rng.uniform(0.0, 0.5, (1, S, ny, 1)).astype(np.float32)
         r = np.concatenate([lo, hi], -1)
@@ -47,7 +58,9 @@ def seeded_inputs(seed, channels=1):
     pt = rng.uniform(0.2, 1.0, (H, W)).astype(np.float32)
     pt[:8, :16] = 0.001  # a tile earlier chunks saturated
     d = dict(mids=mids, y_pos=y_pos, live=live, vr=vr, lut=lut,
-             dom=np.asarray([[0.0, 1.0]], np.float32), sec=sec, pt=pt)
+             dom=np.asarray([[0.0, 1.0]], np.float32), sec=sec, pt=pt,
+             cws=CWS if levels is None else tuple(lv[1] for lv in levels),
+             org_y=ORG_Y if levels is None else tuple(lv[2] for lv in levels))
     if channels > 1:
         _add_channels(d, np.random.default_rng(seed + 1000), channels)
     return d
@@ -120,7 +133,15 @@ K3_MIDS_CASES = {
     "lattice": ((700, 360, 180), 2, 1624, 2944, "mixed"),
     "all_infinite": ((19, 10), 4, 24, 48, "infinite"),
     "no_interval": ((19, 10), 4, 24, 48, None),
+    # more than K3's 8 unrolled levels: its grouped path
+    "levels9": (tuple(46 - 4 * i for i in range(9)), 4, 33, 70, "mixed"),
+    "levels12": (tuple(50 - 4 * i for i in range(12)), 3, 29, 66, "mixed"),
 }
+# each case's seed; a new case takes the next one, so the others keep
+# their inputs
+K3_MIDS_SEEDS = {c: 300 + i for i, c in enumerate(
+    ["all_infinite", "lattice", "levels1", "levels4", "levels8",
+     "no_interval", "ragged_w", "levels9", "levels12"])}
 
 
 def k3_mids_inputs(case):
@@ -137,7 +158,7 @@ def k3_mids_inputs(case):
     from owlexabrick_tpu_torch.render.mids import tent_taps
 
     nys, s_, h, w, interval = K3_MIDS_CASES[case]
-    rng = np.random.default_rng(sorted(K3_MIDS_CASES).index(case) + 300)
+    rng = np.random.default_rng(K3_MIDS_SEEDS[case])
     mids, taps = [], []
     for ny in nys:
         mask = rng.uniform(0.0, 1.0, (s_, ny, w))
