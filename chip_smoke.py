@@ -124,11 +124,22 @@ the run:
     ``plain_kernels`` viewer;
 21. ``phase_mesh``: the multi-device modes on two gloo ranks sharing the
     card (spawned): px and spp meshes of the exact path, pixel bands and
-    z bands of blobs256, each against the same work in this process.
+    z bands of blobs256, each against the same work in this process;
+22. ``phase_fields`` (after phase 10): the ``SlabConfig`` fields
+    ``xf_knots=32``, ``xf_fit_quantum=2``, ``space_skipping=False``,
+    ``megakernel=False`` (K3) and a 120x256 tile with the stride, one
+    1080p headline frame each against its plain frame;
+23. ``phase_scale``: the reference-scale scene (the JAX bench's
+    scale1024 row: the two-wing exajet pattern on a 1024^3 lattice,
+    63,544,167 cells, 4.46 GB of grids built on the card) at 1920x1080
+    with the stride on, through the full and the partial camera cache,
+    a pose switch, a TF drag and uncached frames; the tiers' frames
+    equal bit for bit, the TF drag against uncached frames, a 960x540
+    frame against its plain frame, K1 on a real chunk against its twin.
 
 Launch counts are set to 0 just before each path (aligned, tilted,
-einsum lane, iso, surfaces, contour, CLI, serve; the mesh ranks count
-their own) and read just after; a kernel of a path
+einsum lane, iso, surfaces, contour, CLI, serve, fields, scale; the
+mesh ranks count their own) and read just after; a kernel of a path
 that launched no time there fails the run, and so does an uncached
 megakernel frame whose K6 launches are not one per 8 levels of every
 chunk it swept, and a one-channel clip frame that does not launch K3
@@ -138,8 +149,10 @@ each output written once) over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s (the H100 SXM's published peaks), counted from this
 run's inputs.
 
-``--profile`` adds a torch.profiler trace of one uncached and one
-cached frame per row (one frame per einsum-lane and iso row): device
+The profiled frames of the surface, exact and scale rows record the
+device's kernels alone (no host op events; a frame makes up to ~2.4e5
+launches).  ``--profile`` adds a torch.profiler trace of one uncached
+and one cached frame per row (one frame per einsum-lane and iso row): device
 time by kernel (the top eight, and each of the port's kernels) and the
 device's busy share, and Chrome traces of the aligned and tilted
 megakernel rows (``phase_profile``).
@@ -223,6 +236,29 @@ CONTOUR_NORMAL, CONTOUR_OFFSET = (0.0, 0.0, 1.0), 0.5
 # kernel vs plain: within TOL_PX on FRAC_PX of pixels, TOL_ALL on all
 # (the 2e-2 admits saturation-collapse flips at alpha ~ 0.98)
 TOL_PX, FRAC_PX, TOL_ALL = 1e-4, 0.999, 2e-2
+# the SlabConfig fields on the headline at 1920x1080: (case, fields, the
+# kernels its frame must launch); the tile override leaves a ragged
+# column tile (1920 = 7 x 256 + 128)
+FIELD_CASES = (
+    ("xf_knots_32", dict(xf_knots=32), ("K1", "K6")),
+    ("xf_fit_quantum_2", dict(xf_fit_quantum=2.0), ("K1", "K6")),
+    ("space_skipping_off", dict(space_skipping=False), ("K1", "K6")),
+    ("megakernel_off", dict(megakernel=False), ("K3", "K6")),
+    ("tiles_120x256_stride", dict(tile_rows=120, tile_cols=256,
+                                  adaptive_stride=True), ("K1", "K6")),
+)
+# the scale phase: the JAX bench's scale1024 row (bench.py:395-615): the
+# two-wing exajet pattern on a 1024^3 finest lattice, whose generator
+# gives 63,544,167 cells (bench.py:411, SCALE_RUN_r03.md); the row's
+# camera-cache gate (bench.py:457-459); cached, TF-drag and orbit frames
+# per step (bench.py:537-545, 588-591); the size of the kernel-vs-plain
+# frame (the plain K1 takes 136-394 ms per 1080p chunk, ~86 chunks a
+# frame); the chunk K1 is timed on
+SCALE_N, SCALE_WINGS, SCALE_CELLS = 1024, 2, 63_544_167
+SCALE_GATE_MB = 5120
+SCALE_CACHED, SCALE_TF, SCALE_ORBIT = 5, 8, 8
+SCALE_PLAIN_SIZE = (960, 540)
+SCALE_K1_CHUNK = 4
 
 
 def log(*a):
@@ -335,7 +371,8 @@ def chunk_inputs(grids, cam, fs, cfg, width, height, chunk_index,
     lut = torch.from_numpy(luts_np[0]).to(dev)
     domains = torch.from_numpy(np.asarray(fs.xf_domain, np.float32)).to(dev)
     live = (scale > 1e-6).to(dev)
-    act_f, act_all_f = combine_activity(prep, live, [lut], domains)
+    act_f, act_all_f = combine_activity(prep, live, [lut], domains,
+                                        adaptive_stride=cfg.adaptive_stride)
     knots = slabs.compress_pwl(luts_np)
     _, _, sec = slabs.ray_components(dir00, du, dv, width, height, dev,
                                      lattice=lattice)
@@ -1502,6 +1539,38 @@ def k6_check(name, calls, iters):
     if not finite or err != 0.0:
         raise SystemExit(f"K6 differs from its plain version on {name}: "
                          f"{err} (finite={finite})")
+    return res
+
+
+def k6_check_frame(name, calls, iters):
+    """``k6_check`` on every call of a frame, in runs of calls whose
+    outputs stay under 4 GB (k6_check holds about five sets of a run's
+    outputs at once, and a 1080p frame of the 1024^3 scene writes ~15 GB
+    of mids); one record for the frame: the runs' times and bounds
+    summed, their errors maxed."""
+    max_mb = 4096
+    runs, run, mb = [], [], 0.0
+    for zl, ql in calls:
+        out_mb = sum(z.shape[0] * z.shape[1] * z.shape[2] * q.shape[1] * 4
+                     for z, q in zip(zl, ql)) / 2**20
+        if run and mb + out_mb > max_mb:
+            runs.append(run)
+            run, mb = [], 0.0
+        run.append((zl, ql))
+        mb += out_mb
+    runs.append(run)
+    parts = [k6_check(f"{name}_run{i}", r, iters)
+             for i, r in enumerate(runs)]
+    res = dict(parts[0], name=name, runs=len(parts),
+               largest_zvs=max((p["largest_zvs"] for p in parts),
+                               key=lambda s: np.prod(s)))
+    for k in ("calls", "levels", "ms", "fill_ms", "plain_ms", "library_ms",
+              "bound_ms"):
+        res[k] = sum(p[k] for p in parts)
+    for k in ("max_abs_err", "library_max_abs_err"):
+        res[k] = max(p[k] for p in parts)
+    res["bound_by"] = ",".join(sorted({p["bound_by"] for p in parts}))
+    log("k6 check:", json.dumps(res))
     return res
 
 
@@ -2960,32 +3029,315 @@ def phase_mesh(setups, device, card, world=2, size=(1920, 1080),
     return total, rec
 
 
+def phase_fields(row, width, height):
+    """The SlabConfig fields on the card (``FIELD_CASES``): one frame of
+    the headline at 1920x1080 per field, against its plain frame under
+    ``agree``'s gate; each must launch its kernels and be finite and
+    lit."""
+    import dataclasses
+
+    import torch
+
+    for name, kw, want in FIELD_CASES:
+        cfg = dataclasses.replace(row[3], **kw)
+        n0 = launch_counts()
+        t0 = time.perf_counter()
+        img = render_row(row, width, height, cfg=cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v - n0[k] for k, v in launch_counts().items()}
+        t0 = time.perf_counter()
+        plain = render_row(row, width, height,
+                           cfg=dataclasses.replace(cfg, plain_sweep=True))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ok, mx, share = agree(img, plain)
+        rec = dict(case=name, fields=kw, frame_ms=round(ms, 3),
+                   plain_frame_ms=round(plain_ms, 3), max_abs=mx,
+                   share_within_1e_4=share,
+                   alpha_mean=float(img[:, 3].mean()),
+                   launches={k: v for k, v in got.items() if v})
+        log("field:", json.dumps(rec))
+        if not bool(torch.isfinite(img).all()) or rec["alpha_mean"] <= 1e-3:
+            raise SystemExit(f"field {name}: frame not finite or blank")
+        if not ok:
+            raise SystemExit(f"field {name}: kernel frame disagrees with "
+                             "its plain frame")
+        if min(got[k] for k in want) <= 0:
+            raise SystemExit(f"field {name}: launched {got}, not {want}")
+
+
+def phase_scale(device, card, size=(1920, 1080)):
+    """The reference-scale scene resident on the card (the JAX bench's
+    scale1024 row at full size): ``exajet_pattern_cells(1024, wings=2)``
+    in a process pool, then ``level_grids_from_cells`` on the card (the
+    scatter and the TF-cull tables); the bench camera and config (``bench_setup``'s,
+    adaptive stride on as bench.py:206 has it).  Steps, each logged with
+    its frame times (median, spread), peak device MB and K1/K6 launches:
+
+    a. the default cache gate (half the card): the first frame, which
+       builds the products (full tier), then SCALE_CACHED cached frames;
+    b. the JAX row's gate SCALE_GATE_MB (partial tier): likewise;
+    c. the pose switch to (n/2, n/2, 2.25n) through that cache, and back;
+    d. the TF drag: SCALE_TF frames at the cached pose with opacity scale
+       0.6 + 0.05 (k % 4);
+    e. the orbit rate: SCALE_ORBIT uncached frames.
+
+    Checks (each fails the run): the cell count; the full-tier,
+    partial-tier and uncached frames equal bit for bit; each TF-drag
+    frame within ``agree``'s gate of an uncached frame with its frame
+    state; an uncached frame launches K6 once per 8 levels of every
+    chunk it sweeps; a SCALE_PLAIN_SIZE kernel frame within the gate of
+    its plain frame; K1 on chunk SCALE_K1_CHUNK within TOL_K1 of its
+    twin (timed).  One cached and one uncached frame run under
+    torch.profiler.  K6 against its plain version on one uncached 1080p
+    frame's calls: the largest level block, the largest chunk, the whole
+    frame.  Returns (the launches of steps a-e, [K1's chunk result],
+    K6's results)."""
+    import dataclasses
+
+    import torch
+
+    from owlexabrick_tpu_torch.bench_scene import (
+        default_workers, scale_scene_grids)
+    from owlexabrick_tpu_torch.render import slabs
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.mids import K6_MAX_LEVELS
+
+    t_phase = time.perf_counter()
+    n, (w, h) = SCALE_N, size
+    grids, cells, meta = scale_scene_grids(n, SCALE_WINGS, device)
+    n_cells, value_max = meta["n_cells"], meta["value_max"]
+    per_level = np.bincount(cells[1]).tolist()
+    del cells
+
+    def camera(dist, ww=w, hh=h):
+        return Camera.look_at(from_=[n / 2, n / 2, n * dist],
+                              at=[n / 2, n / 2, n / 2], up=[0, 1, 0],
+                              fovy_degrees=45.0, width=ww, height=hh)
+
+    cam = camera(2.2)
+    fs = make_frame_state(cam, 1, [[0.0, value_max]], dt=1.0,
+                          opacity_scale=0.7)
+    ns = int(np.ceil(float(grids.bounds_hi[0] - grids.bounds_lo[0])))
+    chunk, budget = (24, 16) if 200 <= ns <= 600 else (12, 7)
+    cfg = slabs.SlabConfig(num_channels=1, nslabs=ns, chunk=chunk,
+                           chunk_budget_mb=budget, adaptive_stride=True)
+    pos, d00, _, dv = slabs.permute_camera(cam, grids.axis)
+    s_eff = slabs.effective_chunk(grids, cfg, h, w, slabs.ky_hints_for_camera(
+        grids, cfg, pos, d00, dv, h, w))
+    log("scale scene:", json.dumps(dict(
+        n=n, wings=SCALE_WINGS, cells=n_cells, cells_per_level=per_level,
+        grid_bytes=meta["grid_bytes"],
+        level_shapes_zyx=[list(m.shape) for m in grids.masks],
+        nslabs=ns, chunk=s_eff, chunks_per_frame=-(-ns // s_eff),
+        cells_s=round(meta["gen_s"], 3), cell_workers=default_workers(),
+        grids_s=round(meta["grids_s"], 3), value_max=value_max)))
+    if n_cells != SCALE_CELLS:
+        raise SystemExit(f"scale scene: {n_cells} cells, not {SCALE_CELLS}")
+
+    def frame(cfg_=cfg, fs_=fs, cam_=cam, cache=None, ww=w, hh=h):
+        t0 = time.perf_counter()
+        out = slabs.render_slabs_camera(grids, fs_, cfg_, cam_, ww, hh,
+                                        camera_cache=cache)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def step(name, run):
+        """run() -> (frame ms list, extra fields); logs the step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = launch_counts()
+        times, extra = run()
+        got = launch_counts()
+        rec = dict(step=name, frames_ms=[round(t, 3) for t in times],
+                   median_ms=round(float(np.median(times)), 3),
+                   spread_ms=round(float(max(times) - min(times)), 3),
+                   peak_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
+                   k1_launches=got["K1"] - n0["K1"],
+                   k6_launches=got["K6"] - n0["K6"], **extra)
+        log("scale:", json.dumps(rec))
+        return rec
+
+    imgs = {}
+
+    def cached_run(key, cfg_, cache):
+        def run():
+            imgs[key + "_first"], first_ms = frame(cfg_, cache=cache)
+            tier = cache.get("tier", "full")
+            times = []
+            for _ in range(SCALE_CACHED):
+                imgs[key], t = frame(cfg_, cache=cache)
+                times.append(t)
+            return times, dict(first_frame_ms=round(first_ms, 3), tier=tier,
+                               declined=cache.get("declined"))
+        return run
+
+    # the main path: launch counts from 0 here to the end of step e
+    reset_launch_counts()
+    full = {}
+    rec = step("a_static_default_gate", cached_run("full", cfg, full))
+    if rec["tier"] != "full" or "products" not in full:
+        raise SystemExit(f"scale: the default gate gave {rec['tier']!r} "
+                         f"{rec['declined']!r}, not the full tier")
+    full.clear()
+    torch.cuda.empty_cache()
+    cfg_p = dataclasses.replace(cfg, camera_cache_max_mb=SCALE_GATE_MB)
+    part = {}
+    rec = step("b_static_jax_gate", cached_run("part", cfg_p, part))
+    if not rec["tier"].startswith("partial"):
+        raise SystemExit(f"scale: gate {SCALE_GATE_MB} MB gave "
+                         f"{rec['tier']!r}, not the partial tier")
+
+    def pose_switch():
+        img, t_switch = frame(cfg_p, cam_=camera(2.25), cache=part)
+        tier = part.get("tier", "full")
+        ok = bool(torch.isfinite(img).all()) and float(img[:, 3].mean()) > 1e-3
+        if not ok:
+            raise SystemExit("scale: the switched pose's frame is blank")
+        _, t_back = frame(cfg_p, cache=part)
+        return [t_switch, t_back], dict(tier_switched=tier,
+                                        note="frames: switch, back")
+
+    step("c_pose_switch", pose_switch)
+
+    def tf_state(k):
+        return dataclasses.replace(fs, xf_opacity_scale=np.float32(
+            0.6 + 0.05 * (k % 4)))
+
+    def tf_drag():
+        times = []
+        for k in range(SCALE_TF):
+            imgs[f"tf{k}"], t = frame(cfg_p, fs_=tf_state(k), cache=part)
+            times.append(t)
+        return times, dict(tier=part.get("tier", "full"))
+
+    step("d_tf_drag", tf_drag)
+    wall_cached = float(np.median(
+        [frame(cfg_p, cache=part)[1] for _ in range(2)]))
+    t0 = time.perf_counter()
+    prof_cached = profile_once(lambda: frame(cfg_p, cache=part))
+    log(f"scale: profiled the cached frame in "
+        f"{time.perf_counter() - t0:.1f} s")
+    part.clear()
+    torch.cuda.empty_cache()
+
+    chunks = []
+
+    def orbit():
+        c0 = launch_counts()
+        imgs["uncached"], t = frame()
+        c1 = launch_counts()
+        chunks.append((c1["K1"] - c0["K1"], c1["K6"] - c0["K6"]))
+        return [t] + [frame()[1] for _ in range(SCALE_ORBIT - 1)], {}
+
+    rec_o = step("e_orbit_uncached", orbit)
+    counts = launch_counts()
+    log("launches on the scale path:", json.dumps(counts))
+    if min(counts[k] for k in ("K1", "K6")) <= 0:
+        raise SystemExit(f"the scale path left a kernel unlaunched: {counts}")
+    k1_n, k6_n = chunks[0]
+    k6_want = k1_n * -(-len(grids.levels) // K6_MAX_LEVELS)
+    if k1_n <= 0 or k6_n != k6_want:
+        raise SystemExit(f"scale: an uncached frame swept {k1_n} chunks in "
+                         f"{k6_n} K6 launches, not {k6_want}")
+    t0 = time.perf_counter()
+    prof_unc = profile_once(frame)
+    log(f"scale: profiled the uncached frame in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for mode, wall, prof in (("cached_partial", wall_cached, prof_cached),
+                             ("uncached", rec_o["median_ms"], prof_unc)):
+        log("scale profile:", json.dumps(dict(
+            mode=mode, **profile_record(wall, prof))))
+
+    # checks: the tiers and the uncached frame bit for bit, the TF drag
+    unc = imgs["uncached"]
+    same = {k: bool(torch.equal(imgs[k], unc))
+            for k in ("full_first", "full", "part_first", "part")}
+    log("scale bit-equal to the uncached frame:", json.dumps(same))
+    if not all(same.values()):
+        raise SystemExit(f"scale: cached frames differ from the uncached "
+                         f"frame: {same}")
+    if not bool(torch.isfinite(unc).all()) or float(unc[:, 3].mean()) <= 1e-3:
+        raise SystemExit("scale: the uncached frame is not finite or blank")
+    want_tf = {}
+    for k in range(SCALE_TF):
+        j = k % 4
+        if j not in want_tf:
+            want_tf[j] = frame(fs_=tf_state(k))[0]
+        ok, mx, share = agree(imgs[f"tf{k}"], want_tf[j])
+        log(f"scale tf drag frame {k}: vs uncached max_abs={mx} "
+            f"share_within_1e-4={share:.6f}")
+        if not ok:
+            raise SystemExit(f"scale: TF-drag frame {k} disagrees with its "
+                             "uncached frame")
+    del want_tf, imgs
+
+    log(f"scale: frames and checks done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # the kernels against their plain versions on this scene
+    pw, ph = SCALE_PLAIN_SIZE
+    cam_s = camera(2.2, pw, ph)
+    img, ms = frame(cam_=cam_s, ww=pw, hh=ph)
+    plain, plain_ms = frame(dataclasses.replace(cfg, plain_sweep=True),
+                            cam_=cam_s, ww=pw, hh=ph)
+    ok, mx, share = agree(img, plain)
+    log(f"scale {pw}x{ph}: kernel vs plain frame max_abs={mx} "
+        f"share_within_1e-4={share:.6f} frame_ms={ms:.1f} "
+        f"plain_frame_ms={plain_ms:.1f}")
+    if not ok:
+        raise SystemExit("scale: kernel frame disagrees with plain")
+    ci = chunk_inputs(grids, cam, fs, cfg, w, h, chunk_index=SCALE_K1_CHUNK)
+    log("k1 scale chunk mids shapes (C+1, S, ny, W):",
+        [tuple(m.shape) for m in ci["prep"].mids])
+    k1 = k1_check("scale1024_real_chunk", ci, ci["prep"], None,
+                  ci["tables_knots"], w, h)
+    del ci
+    # K6 at this path's shapes: one uncached 1080p frame's calls
+    calls = [c[:2] for c in capture_all_calls(
+        slabs, "xresample_mids_levels", frame)]
+    chunk = max(calls, key=lambda c: sum(z.numel() for z in c[0]))
+    big = max(range(len(chunk[0])), key=lambda i: chunk[0][i].numel())
+    k6 = [k6_check("scale1024_largest_level",
+                   [([chunk[0][big]], [chunk[1][big]])], 50),
+          k6_check("scale1024_chunk", [chunk], 20),
+          k6_check_frame("scale1024_frame", calls, 5)]
+    del calls, chunk, grids
+    torch.cuda.empty_cache()
+    log(f"scale phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts, [k1], k6
+
+
 def profile_once(fn, trace_path=None):
     """One ``fn()`` (ending in a synchronize) under torch.profiler:
     (device ms, device launches, the port's kernels' {id: (ms, n)}, the
     top eight kernels [(us, n, name)]); the Chrome trace to
-    ``trace_path`` if given."""
+    ``trace_path`` if given, which alone records the host's ops too.
+    The device events are summed by name straight from the profiler's
+    results (building its event tree costs tens of seconds a frame of
+    ~10^5 launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                      if trace_path is not None else [])
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     if trace_path is not None:
         prof.export_chrome_trace(str(trace_path))
-    rows = []
-    for e in prof.key_averages():
-        # kernels only: an aten op's entry repeats the device time of the
-        # kernels it launched
-        if e.device_type != DeviceType.CUDA:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        # the device's kernels, copies and fills; host ops and the
+        # runtime's launch calls are CPU events
+        if e.device_type() != DeviceType.CUDA:
             continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key[:60]))
-    rows.sort(reverse=True)
+        us, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    rows = sorted(((us, n, k[:60]) for k, (us, n) in by_name.items()
+                   if us > 0), reverse=True)
     ours = {}
     for us, n, k in rows:
         tag = next((t for f, t in PORT_KERNELS.items() if f in k), None)
@@ -3115,6 +3467,10 @@ def main() -> int:
         raise SystemExit(f"the einsum path left a kernel unlaunched: "
                          f"{einsum}")
     phase_lane_plain(lanes, lane_frames, width, height)
+    reset_launch_counts()
+    phase_fields(setups["headline"], width, height)
+    fields = launch_counts()
+    log("launches on the fields' frames:", json.dumps(fields))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     iso_rows = iso_setups(setups, tilted, lanes)
@@ -3177,6 +3533,11 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     meshed, _ = phase_mesh(setups, dev, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    # the reference-scale scene (its launches counted inside the phase)
+    scaled, sc_k1, sc_k6 = phase_scale(dev, card)
+    k1 += sc_k1
+    k6 += sc_k6
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
         # no Chrome traces: a 1080p einsum-lane frame's is tens of MB
@@ -3195,8 +3556,8 @@ def main() -> int:
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
     src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
     launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k] + surf[k]
-                + contour[k] + cli[k] + served[k] + meshed[k]
-                for k in aligned}
+                + contour[k] + cli[k] + served[k] + meshed[k] + fields[k]
+                + scaled[k] for k in aligned}
 
     def entry(name, source, replaces, key, err, res, prefix=""):
         # one PyTorch call computes K5's and K6's functions (grid_sample),

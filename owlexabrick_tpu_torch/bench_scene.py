@@ -1,23 +1,29 @@
-"""Benchmark scenes (the port of ``owlexabrick_tpu/bench_scene.py:13-97,
-207``): a synthetic multi-level AMR volume -> raw2cells threshold
-collapse -> level grids; the exajet pattern also as streamed cells; and
-seeded surfaces to place in them (a bumpy-sphere mesh, a bundle of
-streamline helices).
+"""Benchmark scenes (the port of ``owlexabrick_tpu/bench_scene.py``): a
+synthetic multi-level AMR volume -> raw2cells threshold collapse -> level
+grids; the exajet pattern also as streamed cells (in a process pool from
+512^3 on); the reference-scale scene (``load_or_build_scale_scene``: the
+two-wing exajet pattern on a 1024^3 finest lattice, 63.5 M cells); the
+exact path's bench scene (``build_bench_scene``); and seeded surfaces to
+place in them (a bumpy-sphere mesh, a bundle of streamline helices).
 
-``slab_scene_grids`` builds the level grids straight from the cells
-(``level_grids_from_cells``): the bricks only partition the cells and
-the basis lives on the cells, so the brick builder is skipped.  Nothing
-is cached on disk; the scene is made anew in every run.
+``slab_scene_grids`` and ``load_or_build_scale_scene`` build the level
+grids straight from the cells (``level_grids_from_cells``): the bricks
+only partition the cells and the basis lives on the cells, so the grids
+need no per-brick scatter.  Only ``load_or_build_scale_scene`` caches on
+disk (cells, then bricks, then the whole scene), as the JAX package's
+does; the other scenes are made anew in every run.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import time
 
 import numpy as np
 
 from .core.types import TriangleMesh
-from .render.slabs import level_grids_from_cells
+from .render.slabs import level_grids_from_cells, nbytes_grids
 from .render.tracer import morton_order
 from .tools.raw2cells import volume_to_cells
 
@@ -66,6 +72,31 @@ def exajet_pattern_volume(n: int = 256, wings: int = 1) -> np.ndarray:
                          ax[None, None, :], n, wings)
 
 
+def _exajet_slices(n: int, z0s, threshold: float, max_level: int,
+                   wings: int):
+    """The cells of the z slices of 2^max_level planes starting at
+    ``z0s``, in that order, each collapsed on its own with its cells' z
+    offset (a process pool's task in ``exajet_pattern_cells``)."""
+    w = 1 << max_level
+    ax = np.linspace(-1, 1, n, dtype=np.float32)
+    y = ax[None, :, None]
+    x = ax[None, None, :]
+    lowers, levels, scals = [], [], []
+    for z0 in z0s:
+        v = _exajet_field(ax[z0:z0 + w][:, None, None], y, x, n, wings)
+        lo, lv, sc = volume_to_cells(v, threshold, max_level)
+        lo[:, 2] += z0
+        lowers.append(lo)
+        levels.append(lv)
+        scals.append(sc)
+    return lowers, levels, scals
+
+
+# the pool pays for its spawned processes (each imports torch) from
+# 512^3 on: a 256^3 build takes ~2.5 s on one core
+POOL_MIN_N = 512
+
+
 def exajet_pattern_cells(n: int, threshold: float = 0.004,
                          max_level: int = 3, wings: int = 1):
     """The cells of ``exajet_pattern_volume(n, wings)`` without the dense
@@ -73,24 +104,152 @@ def exajet_pattern_cells(n: int, threshold: float = 0.004,
     2^max_level-aligned root blocks, so the field streams in z slices of
     2^max_level planes, each collapsed on its own with its cells' z
     offset.  Equal to ``volume_to_cells(exajet_pattern_volume(n, wings),
-    threshold, max_level)``.  Returns (lower (N, 3) int32, level,
-    scalars)."""
+    threshold, max_level)``.  From n = ``POOL_MIN_N`` on, runs of slices
+    are collapsed in ``default_workers()`` spawned processes and
+    concatenated in z order: the same arrays, bit for bit (a spawned
+    process imports the caller's main module, so a script guards its
+    work with ``if __name__ == "__main__":``).  Returns (lower (N, 3)
+    int32, level, scalars)."""
     w = 1 << max_level
     if n % w:
         raise ValueError(f"n={n} must be a multiple of 2^max_level={w}")
-    ax = np.linspace(-1, 1, n, dtype=np.float32)
-    y = ax[None, :, None]
-    x = ax[None, None, :]
-    lowers, levels, scals = [], [], []
-    for z0 in range(0, n, w):
-        v = _exajet_field(ax[z0:z0 + w][:, None, None], y, x, n, wings)
-        lo, lv, sc = volume_to_cells(v, threshold, max_level)
-        lo[:, 2] += z0
-        lowers.append(lo)
-        levels.append(lv)
-        scals.append(sc)
+    z0s = list(range(0, n, w))
+    workers = default_workers() if n >= POOL_MIN_N else 1
+    if workers <= 1 or len(z0s) < 2:
+        parts = [_exajet_slices(n, z0s, threshold, max_level, wings)]
+    else:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        # about four runs per worker, so a slow run delays the rest little
+        per = max(1, -(-len(z0s) // (4 * workers)))
+        runs = [z0s[i:i + per] for i in range(0, len(z0s), per)]
+        # spawned, not forked: the caller may hold a CUDA context and
+        # threads, which a forked child must not inherit
+        with ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context(
+                    "spawn")) as pool:
+            parts = list(pool.map(
+                _exajet_slices, [n] * len(runs), runs,
+                [threshold] * len(runs), [max_level] * len(runs),
+                [wings] * len(runs)))
+    lowers, levels, scals = ([a for p in parts for a in p[k]]
+                             for k in range(3))
     return (np.concatenate(lowers), np.concatenate(levels),
             np.concatenate(scals))
+
+
+def default_workers() -> int:
+    """Processes for the parallel cell build: the cores this process may
+    run on, at most 16."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # not Linux
+        cores = os.cpu_count() or 1
+    return max(1, min(cores, 16))
+
+
+def scale_scene_grids(n: int = 1024, wings: int = 2, device="cuda",
+                      cells=None):
+    """The cells-and-grids stage of the reference-scale scene: its cells
+    (``exajet_pattern_cells(n, wings=wings)``, unless ``cells`` = (lower,
+    level, scalars) is given) and their level grids (sweep axis z) on
+    ``device``.  Returns (grids, cells, meta) with n_cells, gen_s (when
+    the cells were built here), grids_s (the device's work included),
+    grid_bytes and value_max."""
+    import torch
+
+    meta = {}
+    if cells is None:
+        t0 = time.time()
+        cells = exajet_pattern_cells(n, wings=wings)
+        meta["gen_s"] = time.time() - t0
+    lower, level, scal = cells
+    t0 = time.time()
+    grids = level_grids_from_cells(lower, level, scal[None], axis=2,
+                                   device=device)
+    if grids.masks[0].is_cuda:
+        torch.cuda.synchronize()
+    meta.update(n_cells=int(lower.shape[0]), grids_s=time.time() - t0,
+                grid_bytes=int(nbytes_grids(grids)),
+                value_max=float(scal.max()))
+    return grids, cells, meta
+
+
+def load_or_build_scale_scene(n: int = 1024, wings: int = 2,
+                              cache_dir: str = ".bench_cache",
+                              verbose: bool = True, device="cuda"):
+    """The reference-scale bench scene (the JAX package's
+    ``load_or_build_scale_scene``): the ``wings``-sheet exajet pattern
+    on an ``n``^3 finest lattice (63,544,167 cells and 369,716 bricks at
+    n = 1024, two wings), bricked by the native core, its cells and
+    level grids from ``scale_scene_grids`` on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    Each stage is cached in ``cache_dir``: the cells, then the bricks,
+    then the whole scene (host grids), so an interrupted build resumes
+    and a later call loads.  Returns (bricks, scalars (C, cells) float32
+    in brick order, grids, meta) with meta's n_cells, n_bricks,
+    finest_lattice, gen_s, build_s, grids_s, grid_bytes and value_max,
+    and cache_load_s when the scene came from the cache."""
+    from .core.types import Bricks
+    from .native import native_build_bricks_flat
+
+    os.makedirs(cache_dir, exist_ok=True)
+    tag = f"torch_scale_{n}_{wings}"
+    path = os.path.join(cache_dir, tag + ".pkl")
+    if os.path.exists(path):
+        t0 = time.time()
+        with open(path, "rb") as f:
+            bricks, scalars, grids, meta = pickle.load(f)
+        grids = grids.to(device)
+        meta = dict(meta, cache_load_s=round(time.time() - t0, 1))
+        return bricks, scalars, grids, meta
+
+    cpath = os.path.join(cache_dir, tag + "_cells.npz")
+    cells = None
+    if os.path.exists(cpath):
+        z = np.load(cpath)
+        cells = (z["lower"], z["level"], z["scal"])
+        t_gen = float(z["t_gen"])
+    grids, (lower, level, scal), g_meta = scale_scene_grids(
+        n, wings, device, cells)
+    if cells is None:
+        t_gen = g_meta["gen_s"]
+        np.savez(cpath, lower=lower, level=level, scal=scal, t_gen=t_gen)
+    n_cells = g_meta["n_cells"]
+    if verbose:
+        print(f"# scale scene: {n_cells / 1e6:.1f}M cells generated in "
+              f"{t_gen:.0f}s", flush=True)
+    bpath = os.path.join(cache_dir, tag + "_bricks.npz")
+    if os.path.exists(bpath):
+        z = np.load(bpath)
+        bricks = Bricks(lower=z["b_lower"], size=z["b_size"],
+                        level=z["b_level"], begin=z["b_begin"])
+        cell_ids = z["cell_ids"]
+        t_build = float(z["t_build"])
+    else:
+        t0 = time.time()
+        bricks, cell_ids = native_build_bricks_flat(lower, level)
+        t_build = time.time() - t0
+        np.savez(bpath, b_lower=bricks.lower, b_size=bricks.size,
+                 b_level=bricks.level, b_begin=bricks.begin,
+                 cell_ids=cell_ids, t_build=t_build)
+    if verbose:
+        print(f"# scale scene: {bricks.num_bricks} bricks built in "
+              f"{t_build:.0f}s", flush=True)
+    scalars = scal[np.asarray(cell_ids, np.int64)][None].astype(np.float32)
+    del cell_ids, lower, level, scal
+    meta = dict(n_cells=n_cells, n_bricks=int(bricks.num_bricks),
+                finest_lattice=n, gen_s=round(t_gen, 1),
+                build_s=round(t_build, 1),
+                grids_s=round(g_meta["grids_s"], 1),
+                grid_bytes=g_meta["grid_bytes"],
+                value_max=g_meta["value_max"])
+    with open(path, "wb") as f:
+        pickle.dump((bricks, scalars, grids.to("cpu"), meta), f,
+                    protocol=4)
+    return bricks, scalars, grids, meta
 
 
 def slab_scene_grids(kind: str, n: int, threshold: float = 0.004,
@@ -158,3 +317,27 @@ def helix_bundle(n: int, count: int = 64, segments: int = 64,
     pts = pts[morton_order(pts[:, 0])]
     seg_t = np.tile(np.arange(1, segments + 1, dtype=np.int32), count)
     return (pts[:, :-1].reshape(-1, 3), pts[:, 1:].reshape(-1, 3), seg_t)
+
+
+def build_bench_scene(n: int = 64, threshold: float = 0.004,
+                      max_level: int = 3, device="cuda"):
+    """The exact path's bench scene (the JAX package's
+    ``build_bench_scene``): ``synthetic_volume(n)`` -> threshold collapse
+    -> the port's pipeline (native core), on ``device``.  Returns (scene,
+    stats) with n_cells, n_bricks, n_regions, max_bricks_per_region,
+    tree_depth, the cells per level and value_max."""
+    from .pipeline import scene_from_cells
+
+    lower, level, scal = volume_to_cells(synthetic_volume(n), threshold,
+                                         max_level)
+    scene, bricks, _, regions, tree = scene_from_cells(
+        lower, level, [scal], device=device)
+    return scene, dict(
+        n_cells=int(lower.shape[0]),
+        n_bricks=int(bricks.num_bricks),
+        n_regions=int(regions.num_regions),
+        max_bricks_per_region=int(regions.max_bricks_per_region),
+        tree_depth=int(tree.depth),
+        levels=np.bincount(level).tolist(),
+        value_max=float(scal.max()),
+    )

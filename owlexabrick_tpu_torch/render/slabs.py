@@ -31,9 +31,11 @@ gradients per batch of active slabs in the JAX package's z, y, x order
 and scans for iso crossings slab by slab (plain torch); its colormap
 recolor is K5.  Its hit depth is the volume's ``t_stop``.
 
-Host-side pieces (level-grid construction, knot compression, camera
+Host-side pieces (the per-brick grid scatter, knot compression, camera
 separability, y crop, window hints, chunk depth) are numpy, as in the
-JAX package, so both packages derive the same integers and knots.
+JAX package, so both packages derive the same integers and knots; the
+cell scatter (``level_grids_from_cells``) and the grids' TF-cull tables
+run on the grids' device, as exact gathers, scatters and min/max.
 """
 
 from __future__ import annotations
@@ -102,27 +104,30 @@ class LevelGrids:
         )
 
 
-def _vrange_zy(vals: np.ndarray, mask: np.ndarray):
-    """(C, nz, nyb, 2) masked value min/max over x + y-bins."""
+def _vrange_zy(vals, mask):
+    """(C, nz, nyb, 2) masked value min/max over x + y-bins, and the bin
+    (rows per bin).  ``vals`` (C, nz, ny, nx) and ``mask`` (nz, ny, nx):
+    torch tensors (reduced on their device) or numpy arrays."""
+    vals, mask = torch.as_tensor(vals), torch.as_tensor(mask)
     c, nz, ny, nx = vals.shape
     bin_ = max(1, -(-ny // 32))
     nyb = -(-ny // bin_)
     pad = nyb * bin_ - ny
-    occ = np.broadcast_to(mask[None] > 0, vals.shape)
-    vmin = np.where(occ, vals, np.inf)
-    vmax = np.where(occ, vals, -np.inf)
-    if pad:
-        vmin = np.pad(vmin, ((0, 0), (0, 0), (0, pad), (0, 0)),
-                      constant_values=np.inf)
-        vmax = np.pad(vmax, ((0, 0), (0, 0), (0, pad), (0, 0)),
-                      constant_values=-np.inf)
-    vmin = vmin.reshape(c, nz, nyb, bin_, -1).min((3, 4))
-    vmax = vmax.reshape(c, nz, nyb, bin_, -1).max((3, 4))
-    return np.stack([vmin, vmax], axis=-1).astype(np.float32), bin_
+    occ = mask[None] > 0
+    out = []
+    for fill, red in ((float("inf"), torch.amin), (float("-inf"), torch.amax)):
+        t = torch.where(occ, vals, fill)
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0, 0, pad), value=fill)
+        out.append(red(t.reshape(c, nz, nyb, bin_, nx), dim=(3, 4)))
+        del t
+    return torch.stack(out, dim=-1).to(torch.float32), bin_
 
 
-def _compute_zranges(levels, vals, masks, origins, lo_p, hi_p):
-    """Per-fine-z value min/max over all levels (for slab TF culling)."""
+def _compute_zranges(levels, vals, masks, origins, lo_p, hi_p) -> np.ndarray:
+    """Per-fine-z value min/max over all levels (for slab TF culling), a
+    host (nz_fine, 2) array.  ``vals`` / ``masks``: per level torch
+    tensors (reduced per z slice on their device) or numpy arrays."""
     nz_fine = int(np.ceil(hi_p[0]) - np.floor(lo_p[0]))
     zr = np.stack(
         [np.full(nz_fine, np.inf, np.float32),
@@ -132,17 +137,21 @@ def _compute_zranges(levels, vals, masks, origins, lo_p, hi_p):
     for li, (L, v, m) in enumerate(zip(levels, vals, masks)):
         cw = 1 << L
         orgz = float(origins[li][0])
+        v, m = torch.as_tensor(v), torch.as_tensor(m)
         occ = m > 0
-        for k in range(v.shape[1]):
-            if not occ[k].any():
-                continue
-            sel = v[:, k][np.broadcast_to(occ[k], v[:, k].shape)]
+        has = occ.flatten(1).any(1).cpu().numpy()
+        # each z slice's min / max over its cells' values, every channel
+        lo_k = torch.where(occ[None], v, float("inf")).amin(
+            dim=(0, 2, 3)).cpu().numpy()
+        hi_k = torch.where(occ[None], v, float("-inf")).amax(
+            dim=(0, 2, 3)).cpu().numpy()
+        for k in np.nonzero(has)[0]:
             # cell k at level L covers fine z in [(orgz+k)*cw,
             # (orgz+k+1)*cw); basis support extends one cell each way
             f0 = int(max((orgz + k - 1) * cw - z_lo, 0))
             f1 = int(min((orgz + k + 2) * cw - z_lo, nz_fine))
-            zr[f0:f1, 0] = np.minimum(zr[f0:f1, 0], sel.min())
-            zr[f0:f1, 1] = np.maximum(zr[f0:f1, 1], sel.max())
+            zr[f0:f1, 0] = np.minimum(zr[f0:f1, 0], lo_k[k])
+            zr[f0:f1, 1] = np.maximum(zr[f0:f1, 1], hi_k[k])
     return zr
 
 
@@ -165,7 +174,18 @@ def render_device(device) -> torch.device:
 
 def _finish_grids(levels, vals, masks, origins, v_lo, v_hi, perm, c,
                   axis, device) -> LevelGrids:
+    """LevelGrids on ``device`` from per-level values and masks (numpy
+    arrays or torch tensors): the sweep bounds and the TF-cull tables,
+    reduced on ``device``."""
     device = render_device(device)
+
+    def t(a):
+        if isinstance(a, np.ndarray):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(device).contiguous()
+
+    vals = [t(v) for v in vals]
+    masks = [t(m) for m in masks]
     # sweep bounds = union of basis-function domains (brick bounds padded
     # by half the coarsest cell width, ExaBricks.h:55-60)
     pad = 0.5 * (1 << max(levels))
@@ -173,18 +193,14 @@ def _finish_grids(levels, vals, masks, origins, v_lo, v_hi, perm, c,
     hi_p = np.asarray([v_hi[p] + pad for p in perm], np.float32)
     zr = _compute_zranges(levels, vals, masks, origins, lo_p, hi_p)
     vr_zy = [_vrange_zy(v, m) for v, m in zip(vals, masks)]
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
     return LevelGrids(
-        vals=tuple(t(v) for v in vals),
-        masks=tuple(t(m) for m in masks),
+        vals=tuple(vals),
+        masks=tuple(masks),
         origins=tuple(origins),
         zranges=t(zr),
         bounds_lo=lo_p,
         bounds_hi=hi_p,
-        vrange_zy=tuple(t(v) for v, _ in vr_zy),
+        vrange_zy=tuple(v for v, _ in vr_zy),
         levels=tuple(levels),
         num_channels=c,
         axis=axis,
@@ -254,37 +270,50 @@ def level_grids_from_cells(lower, level, scalars, axis: int = 2,
                            device="cuda") -> LevelGrids:
     """Level grids straight from cells (the cell-scatter twin of
     ``build_level_grids``): bricks only partition the cells and the basis
-    lives on the cells, so no brick builder is needed.  lower: (N, 3)
-    int (x, y, z); level: (N,); scalars: (C, N) or (N,)."""
+    lives on the cells, so no brick builder is needed.  The scatter and
+    the TF-cull tables run on ``device`` (the card unless the caller asks
+    for the CPU).  lower: (N, 3) int (x, y, z); level: (N,); scalars:
+    (C, N) or (N,)."""
+    dev = render_device(device)
     scalars = np.asarray(scalars, np.float32)
     if scalars.ndim == 1:
         scalars = scalars[None]
     c = scalars.shape[0]
     perm = _perm(axis)
-    lower = np.asarray(lower).astype(np.int64)
-    level = np.asarray(level).astype(np.int64)
-    cwc = (1 << level).astype(np.float32)
-    lo3 = lower.astype(np.float32)
-    hi3 = lo3 + cwc[:, None]
+    lower = torch.from_numpy(np.ascontiguousarray(lower)).to(dev).to(
+        torch.int64)
+    level = torch.from_numpy(np.ascontiguousarray(level)).to(dev).to(
+        torch.int64)
+    scal = torch.from_numpy(np.ascontiguousarray(scalars)).to(dev)
 
-    levels = tuple(sorted(int(l) for l in np.unique(level)))
-    vals, masks, origins = [], [], []
+    levels = tuple(int(l) for l in torch.unique(level).tolist())
+    vals, masks, origins, los, his = [], [], [], [], []
     for L in levels:
         cw = 1 << L
         sel = level == L
-        org, (nz, ny, nx) = _level_frame(lo3[sel].min(0), hi3[sel].max(0),
-                                         cw, perm)
-        idx = lower[sel] // cw - org  # (n, 3) x, y, z
+        low = lower[sel]
+        # the level's box in float32, as lower.astype(float32) (+ cw)
+        # rounds it (rounding is monotone, so min / max commute with it)
+        l_lo = low.amin(0).cpu().numpy().astype(np.float32)
+        l_hi = (low.amax(0).cpu().numpy().astype(np.float32)
+                + np.float32(cw))
+        los.append(l_lo)
+        his.append(l_hi)
+        org, (nz, ny, nx) = _level_frame(l_lo, l_hi, cw, perm)
+        idx = torch.div(low, cw, rounding_mode="floor") - torch.from_numpy(
+            org).to(dev)  # (n, 3) x, y, z
         ii = tuple(idx[:, p] for p in perm)
-        v = np.zeros((c, nz, ny, nx), np.float32)
-        m = np.zeros((nz, ny, nx), np.float32)
-        v[(slice(None), *ii)] = scalars[:, sel]
+        del low, idx
+        v = torch.zeros((c, nz, ny, nx), dtype=torch.float32, device=dev)
+        m = torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
+        v[(slice(None), *ii)] = scal[:, sel]
         m[ii] = 1.0
         vals.append(v)
         masks.append(m)
         origins.append(np.asarray([org[p] for p in perm], np.float32))
-    return _finish_grids(levels, vals, masks, origins, lo3.min(0),
-                         hi3.max(0), perm, c, axis, device)
+    del lower, level, scal
+    return _finish_grids(levels, vals, masks, origins, np.min(los, 0),
+                         np.max(his, 0), perm, c, axis, dev)
 
 
 # ----------------------------------------------------------------------------
@@ -453,7 +482,7 @@ def reorient_grids(grids: LevelGrids, camera):
         zranges=t(zr),
         bounds_lo=lo_p,
         bounds_hi=hi_p,
-        vrange_zy=tuple(t(tb) for tb, _ in vr_zy),
+        vrange_zy=tuple(tb.to(dev) for tb, _ in vr_zy),
         levels=grids.levels,
         num_channels=grids.num_channels,
         axis=2,  # the camera frame's z is the sweep axis
@@ -617,11 +646,13 @@ def compress_pwl(luts_np, err_tol: float = 2e-4,
 
 @dataclass(frozen=True)
 class SlabConfig:
-    """Slab-sweep settings: the default-lane fields of the JAX package's
-    ``SlabConfig`` that a caller sets (same names and defaults), plus
-    ``plain_sweep``.  The port always culls by the transfer function and
-    classifies the full 128-texel LUT, compressed to knots unless
-    ``xf_compress`` is off."""
+    """Slab-sweep settings: the fields of the JAX package's ``SlabConfig``
+    that change the image or the lane (same names and defaults), plus
+    ``xf_compress`` and ``plain_sweep``.  By default the sweep culls
+    slabs and tiles by the transfer function (``space_skipping``) and the
+    megakernel lane classifies the 128-texel LUT through its PWL knots;
+    ``xf_knots`` != 128 resamples the LUT to that many texels and
+    classifies it dense."""
 
     num_channels: int = 1
     nslabs: int = 128
@@ -629,14 +660,32 @@ class SlabConfig:
     # (exabrick.cu:1694-97); the banded sweep defers it to its combiner
     saturate_collapse: bool = True
     # the megakernel lane classifies through the LUT's PWL knots (within
-    # one display quantum, compress_pwl); False classifies the dense
-    # 128-texel LUT, as the JAX package does for a frame state held on
-    # its device (its offline CLI's --fast frames)
+    # xf_fit_quantum display quanta, compress_pwl); False classifies the
+    # dense LUT, as the JAX package does for a frame state held on its
+    # device (its offline CLI's --fast frames)
     xf_compress: bool = True
     # slabs per chunk (capped by effective_chunk)
     chunk: int = 12
     # sweep back to front along z (set from the view direction)
     flip: bool = False
+    # cull slabs whose z value range the transfer function leaves
+    # transparent, and tiles by their rows' value ranges (TF-aware
+    # lateral cull); False integrates every slab in front of the eye
+    space_skipping: bool = True
+    # LUT texels per channel: any other value than 128 resamples each
+    # channel's opacity-scaled LUT linearly to this many texels (the
+    # JAX package's speed mode) and turns the knot compression off
+    xf_knots: int = NUM_XF_VALUES
+    # PWL-fit tolerance of the knot compression in display quanta
+    # (fit_tol = xf_fit_quantum / 255)
+    xf_fit_quantum: float = 1.0
+    # False sends every frame to the einsum lane (one channel without
+    # shading: K6 then K3 from the mids), as gradient shading does
+    megakernel: bool = True
+    # sweep tile shape overrides (0 = auto, sweep.tile_shape): the
+    # per-tile activity, stride and saturation tables follow the tile
+    tile_rows: int = 0
+    tile_cols: int = 0
     # the JAX package's VMEM budget for the chunk-depth rule
     # (effective_chunk); kept because the chunk depth is quadrature
     chunk_budget_mb: int = 7
@@ -754,7 +803,7 @@ def ky_hints_for_camera(grids: LevelGrids, cfg: SlabConfig, cam_pos,
     z_lo, z_hi = float(grids.bounds_lo[0]), float(grids.bounds_hi[0])
     oz = float(pos[0])
     scale_max = max(abs(z_lo - oz), abs(z_hi - oz)) / abs(rz)
-    tr, _ = tile_shape(height, width)
+    tr, _ = tile_shape(height, width, (cfg.tile_rows, cfg.tile_cols))
     n_rt = -(-height // tr)
     ry_p = np.concatenate([ry, np.repeat(ry[-1:], n_rt * tr - height)])
     spans = ry_p.reshape(n_rt, tr)
@@ -772,9 +821,11 @@ def ky_hints_for_camera(grids: LevelGrids, cfg: SlabConfig, cam_pos,
 
 def megakernel_lane(cfg: SlabConfig, t_start=None) -> bool:
     """The lane ``render_slabs`` takes (the JAX package's ``_mode_flags``):
-    the megakernel, unless DVR gradient shading or a clip-box interval
-    start ``t_start`` needs the einsum lane's per-sample fields."""
-    return not cfg.gradient_shading_dvr and t_start is None
+    the megakernel, unless ``cfg.megakernel`` is off or DVR gradient
+    shading or a clip-box interval start ``t_start`` needs the einsum
+    lane's per-sample fields."""
+    return (cfg.megakernel and not cfg.gradient_shading_dvr
+            and t_start is None)
 
 
 def effective_chunk(grids: LevelGrids, cfg: SlabConfig, height: int,
@@ -796,7 +847,8 @@ def effective_chunk(grids: LevelGrids, cfg: SlabConfig, height: int,
         return min(int(ky_hints[li]) + 8, ny8)
 
     ny_total = sum(rows_resident(li, m) for li, m in enumerate(grids.masks))
-    tc_est = next((t for t in (512, 256, 128) if width % t == 0), 128)
+    tc_est = cfg.tile_cols or next(
+        (t for t in (512, 256, 128) if width % t == 0), 128)
     budget = cfg.chunk_budget_mb * 1024 * 1024
     per_slab_bytes = (1 + cfg.num_channels) * ny_total * tc_est * 4
     cap = max(4, budget // (per_slab_bytes * 2))
@@ -846,6 +898,28 @@ def scaled_luts(fs, num_channels: int):
     lut = np.asarray(fs.xf_lut, np.float32)
     return [np.concatenate([lut[c, :, :3], lut[c, :, 3:4] * scale], axis=1)
             for c in range(num_channels)]
+
+
+def frame_luts(fs, cfg: SlabConfig):
+    """The per-channel (N, 4) LUTs a frame classifies (host numpy):
+    ``scaled_luts``, resampled linearly to ``cfg.xf_knots`` texels when
+    that is not 128 (the JAX package's speed mode, its slabs.py:
+    1364-1378: texel positions linspace(0, 127, N), each a lerp of its
+    two neighbours)."""
+    luts = scaled_luts(fs, cfg.num_channels)
+    n = int(cfg.xf_knots)
+    if n == NUM_XF_VALUES:
+        return luts
+    if n < 2:
+        raise ValueError(f"xf_knots={n}; the LUT needs at least 2 texels")
+    f32 = np.float32
+    step = np.arange(n - 1, dtype=f32) / f32(n - 1)
+    uu = np.append(f32(NUM_XF_VALUES - 1) * step,
+                   f32(NUM_XF_VALUES - 1)).astype(f32)
+    k0 = np.clip(np.floor(uu).astype(np.int32), 0, NUM_XF_VALUES - 2)
+    fr = (uu - k0.astype(f32))[:, None]
+    return [(l[k0] * (f32(1) - fr) + l[k0 + 1] * fr).astype(f32)
+            for l in luts]
 
 
 def xf_texel_coord(value: torch.Tensor, domain,
@@ -1119,16 +1193,19 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     dom_np = np.asarray(fs.xf_domain, np.float32)
     domains = torch.from_numpy(dom_np[:cfg.num_channels]).to(dev)
     # per-slab TF activity (space skipping) on the host: tiny tables
-    zranges = grids.zranges.cpu()
-    zi = torch.clamp((z_planes - _f32(np.floor(z_lo), "cpu")).to(
-        torch.int64), 0, zranges.shape[0] - 1)
-    act = torch.zeros(cfg.nslabs, dtype=torch.bool)
-    for c in range(cfg.num_channels):
-        act = act | active_for_volume_sampling(
-            torch.from_numpy(lut_np[c]), torch.from_numpy(dom_np[c]),
-            _f32(fs.xf_opacity_scale, "cpu"), zranges[zi])
-    luts = [torch.from_numpy(l).to(dev)
-            for l in scaled_luts(fs, cfg.num_channels)]
+    if cfg.space_skipping:
+        zranges = grids.zranges.cpu()
+        zi = torch.clamp((z_planes - _f32(np.floor(z_lo), "cpu")).to(
+            torch.int64), 0, zranges.shape[0] - 1)
+        act = torch.zeros(cfg.nslabs, dtype=torch.bool)
+        for c in range(cfg.num_channels):
+            act = act | active_for_volume_sampling(
+                torch.from_numpy(lut_np[c]), torch.from_numpy(dom_np[c]),
+                _f32(fs.xf_opacity_scale, "cpu"), zranges[zi])
+    else:
+        act = torch.ones(cfg.nslabs, dtype=torch.bool)
+    luts = [torch.from_numpy(l).to(dev) for l in frame_luts(fs, cfg)]
+    tiles = (cfg.tile_rows, cfg.tile_cols)
 
     lvl_occ = _level_occupancy(grids, z_planes)
     s_chunk = effective_chunk(grids, cfg, h, w, ky_hints, t_start)
@@ -1187,7 +1264,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         # per-slab (C, S, nyb, 2) value ranges over the z-lerp support
         # rows, for the TF-aware lateral cull
         tf_cull = None
-        if grids.vrange_zy:
+        if grids.vrange_zy and cfg.space_skipping:
             vr_rows = []
             for li, L in enumerate(grids.levels):
                 cw = float(1 << L)
@@ -1217,7 +1294,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         mids, orgs_y, cws_l, tf_cull = mega_chunk_products(z_s, occ_s, scale)
         y_pos = (oy.to(dev) + scale.to(dev)[:, None] * ry[None, :]
                  ).contiguous()  # (S, H)
-        prep = prepare_chunk(mids, orgs_y, cws_l, y_pos, h, w,
+        prep = prepare_chunk(mids, orgs_y, cws_l, y_pos, h, w, tiles=tiles,
                              adaptive_stride=cfg.adaptive_stride,
                              tf_cull=tf_cull)
         return (prep if keep_mids else prep._replace(mids=())), scale
@@ -1285,7 +1362,8 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
             prep, sec, live_d, tables, dz, h, w, act_f=act_f,
             act_all_f=act_all_f, prev_trans=(1.0 - alpha).contiguous(),
             t_stop=None if stop_img is None else (scale, stop_img),
-            adaptive_stride=cfg.adaptive_stride, plain=cfg.plain_sweep)
+            tiles=tiles, adaptive_stride=cfg.adaptive_stride,
+            plain=cfg.plain_sweep)
         # absolute-transmittance carry: outputs arrive premultiplied
         color = color + rgb
         alpha = 1.0 - trans
@@ -1325,9 +1403,10 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
                         carry=None):
     """Permute/validate the camera, render transposed when pixel x runs
     along grid y, pick the sweep direction from the view sign, crop the
-    grids to the rows the rays reach (not under gradient shading, as in
-    the JAX package), compress the transfer function to knots, and
-    render.  Returns (P, 4) rgba in row-major pixel order.
+    grids to the rows the rays reach (not on the einsum lane that
+    gradient shading or ``cfg.megakernel=False`` choose, as in the JAX
+    package), compress the transfer function to knots, and render.
+    Returns (P, 4) rgba in row-major pixel order.
 
     ``lattice``: ((W,), (H,)) lateral ray components of a shear-warp
     intermediate camera (``ShearWarp.lattice``); such a camera supplies
@@ -1362,7 +1441,7 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
 
     mega = megakernel_lane(cfg, t_start)
     y_crop = None
-    if not cfg.gradient_shading_dvr:
+    if cfg.megakernel and not cfg.gradient_shading_dvr:
         y_crop = (y_crop_for_camera(grids, cfg, pos, dir00, du, width)
                   if swapped else
                   y_crop_for_camera(grids, cfg, pos, dir00, dv, height,
@@ -1370,8 +1449,10 @@ def render_slabs_camera(grids: LevelGrids, fs, cfg: SlabConfig, camera,
 
     # host-side PWL compression of the transfer function (~10x fewer
     # classification knots for control-point colormaps; the megakernel's)
-    knots = (compress_pwl(scaled_luts(fs, cfg.num_channels))
-             if mega and cfg.xf_compress else None)
+    knots = (compress_pwl(scaled_luts(fs, cfg.num_channels),
+                          fit_tol=cfg.xf_fit_quantum / 255.0)
+             if mega and cfg.xf_compress and cfg.xf_knots == NUM_XF_VALUES
+             else None)
 
     def cached_products(pos_, dir00_, du_, dv_, w_, h_, hints):
         if camera_cache is None:

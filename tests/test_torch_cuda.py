@@ -1,7 +1,8 @@
 """PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
 surface stop, at 2 to 16 levels), K2a/K2b (csrc/warp.cu), K3 (from the
 mids, at 1 to 12 levels), K4, K5 (csrc/xf.cu) and K6 (csrc/mids.cu)
-against their plain-torch versions, and the port's main path, einsum
+against their plain-torch versions (K1, K3 and K4 also through a
+32-texel LUT, and K3 on the unclipped chunks of ``megakernel=False``), and the port's main path, einsum
 lane and iso path, the offline CLI's ``--fast`` runs and the web
 viewer's frames (``aox=1`` among them) on CUDA against the same paths on
 the CPU, and a 2-rank gloo mesh whose ranks share the card against the
@@ -35,15 +36,26 @@ def cuda():
     return torch.device("cuda")
 
 
+def _texels(lut, n):
+    """An (128, 4) LUT resampled linearly to ``n`` texels (the
+    ``xf_knots`` speed mode's LUT)."""
+    uu = np.linspace(0.0, 127.0, n)
+    return np.stack([np.interp(uu, np.arange(128), lut[:, k])
+                     for k in range(4)], 1).astype(np.float32)
+
+
 def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
-                      levels=None):
+                      levels=None, texels=128):
     """K1 and its plain twin on one seeded chunk (``levels``:
-    ``deep_levels``' table, else two levels); returns K1's launch shape
-    after checking every output value within 1e-5."""
+    ``deep_levels``' table, else two levels; ``texels``: the dense LUT's
+    texels); returns K1's launch shape after checking every output value
+    within 1e-5."""
     from owlexabrick_tpu_torch.render.slabs import compress_pwl
 
     d = seeded_inputs(5, channels=channels, levels=levels)
     luts_np = d.get("luts", [d["lut"]])
+    if texels != 128:
+        luts_np = [_texels(lut, texels) for lut in luts_np]
     mids = [torch.from_numpy(np.concatenate([v.reshape(-1, *m.shape),
                                              m[None]])).to(cuda)
             for v, m in d["mids"]]
@@ -128,6 +140,15 @@ def test_k1_carry_in_global_memory_matches_plain_version(cuda, dense):
     channels, most of it past the image) keeps it in the global scratch."""
     shape = _k1_against_plain(cuda, dense, True, True, 6, tiles=(64, 1024))
     assert shape["carry_on_chip"] == 0 and shape["carry_floats"] > 0
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("stop", [False, True], ids=["free", "stop"])
+def test_k1_dense_32_texels_matches_plain_version(cuda, stop, channels):
+    """K1's dense classification of a 32-texel LUT (``xf_knots=32``)
+    against its twin within 1e-5, with the carry in."""
+    shape = _k1_against_plain(cuda, True, True, stop, channels, texels=32)
+    assert shape["carry_on_chip"] == 1
 
 
 def test_main_path_on_card_matches_cpu(cuda):
@@ -234,6 +255,83 @@ def test_k4_matches_plain_version(cuda, shape):
         assert g.shape == p.shape and torch.isfinite(g).all()
         assert float((g - p).abs().max()) <= 1e-5
     assert float(got4[3].max()) > 0.5
+
+
+def test_k4_32_texels_matches_plain_version(cuda):
+    """K4 classifying through a 32-texel LUT (``xf_knots=32`` on a
+    shaded or multi-channel einsum-lane frame) against its twin within
+    1e-5."""
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    sw, swv, sec, _, lut = _xf_inputs(12, 40, 512, seed=4)
+    sw, swv, sec, lut = (torch.from_numpy(a).to(cuda)
+                         for a in (sw, swv, sec, _texels(lut, 32)))
+    dom, dz = np.asarray([0.1, 0.9], np.float32), np.float32(0.75)
+    n4 = PC.classify_field_cuda.launches
+    got = PC.classify_field(sw, swv, sec, lut, dom, dz)
+    assert PC.classify_field_cuda.launches == n4 + 1
+    want = PC.classify_field(sw, swv, sec, lut, dom, dz, plain=True)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - p).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["levels4", "no_interval"])
+def test_k3_mids_32_texels_bit_equal_plain(cuda, case):
+    """K3 from the mids through a 32-texel LUT against its twin, bit for
+    bit, with the clip interval and without (the unclipped one-channel
+    chunk ``megakernel=False`` sends)."""
+    from owlexabrick_tpu_torch.render import classify as PC
+
+    d = k3_mids_inputs(case)
+    d["lut"] = _texels(d["lut"], 32)
+
+    def dev(v):
+        return None if v is None else torch.from_numpy(v).to(cuda)
+
+    args = ([dev(m) for m in d["mids"]], [dev(tp) for tp in d["taps"]],
+            dev(d["scale"]), dev(d["t_start"]), dev(d["t_stop"]),
+            dev(d["sec"]), dev(d["lut"]), d["dom"], d["dz"])
+    n0 = PC.composite_mids_cuda.launches
+    got = PC.composite_mids(*args)
+    assert PC.composite_mids_cuda.launches == n0 + 1
+    want = PC.composite_mids(*args, plain=True)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, p)
+
+
+def test_k3_unclipped_lane_on_card_equals_plain(cuda):
+    """``SlabConfig(megakernel=False)``: a one-channel frame without a
+    clip box on the einsum lane, on the card (K6, then K3 from the mids
+    with an open interval) equal to its plain versions on the card bit
+    for bit and to the CPU frame within 1e-5; K3 launches once per
+    chunk with a live slab."""
+    from owlexabrick_tpu_torch.bench_scene import synthetic_volume
+    from owlexabrick_tpu_torch.render import classify as PC
+    from owlexabrick_tpu_torch.render import slabs as P
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.tools.raw2cells import volume_to_cells
+
+    lower, level, scal = volume_to_cells(synthetic_volume(32), 0.004, 3)
+    cam = Camera.look_at([16.0, 16.0, 70.0], [16.0, 16.0, 16.0], [0, 1, 0],
+                         30.0, 200, 120)
+    fs = make_frame_state(cam, 1, [[0.0, 1.05]], dt=1.0, opacity_scale=0.8)
+    cfg = P.SlabConfig(nslabs=18, chunk=4, megakernel=False)
+    frames = []
+    for device, plain in ((cuda, False), (cuda, True), ("cpu", False)):
+        g = P.level_grids_from_cells(lower, level, scal[None], device=device)
+        n3 = PC.composite_mids_cuda.launches
+        frames.append(P.render_slabs_camera(
+            g, fs, dataclasses.replace(cfg, plain_sweep=plain), cam, 200,
+            120).cpu())
+        k3 = PC.composite_mids_cuda.launches - n3
+        assert (k3 == 0) == (plain or device == "cpu")
+    assert torch.equal(frames[0], frames[1])
+    assert float((frames[0] - frames[2]).abs().max()) < 1e-5
+    assert float(frames[0][:, 3].max()) > 0.3
 
 
 @pytest.mark.parametrize("case", sorted(K3_MIDS_CASES))
