@@ -14,9 +14,10 @@ colormap recolor through K5, the volume stopped at the hits by K1's
 surface stop) and the surface path (meshes, streamline segments and the
 lattice AO through the ``Renderer``: the traces and the AO estimator are
 torch ops, their depth K1's surface stop), and the exact path (the
-scene build, the region march, the exact iso march, contour planes,
-``ao_exact``: torch ops, no port kernel).  Phases, each of which fails
-the run:
+scene build, the packed region march of ``render/wavefront.py`` on the
+JAX Renderer's route and the classic one, the exact iso march, contour
+planes, ``ao_exact``: torch ops, no port kernel).  Phases, each of which
+fails the run:
 
 1. device: the card's name and power limit, and the kernel build
    (``nvcc -Xptxas -v``'s report; K1's registers and spills per channel
@@ -98,21 +99,28 @@ the run:
     iso, contour, clipbox, mesh_volume, tracer_segments, multichannel,
     ao_exact) at 96x64 on the card under the golden gate;
 15. ``headline_exact``: the 64^3 bench scene and camera at 1920x1080,
-    exact DVR, EXACT_FRAMES frames: the scene's build seconds and bytes
-    on the card, the frame ms, one profiled frame (launches, busy
-    share), the region iterations of frame 0's rays, the peak MB, frame
-    0's march at half the default ray batch and at the default in turns,
-    and frame 0 against the same port code on the CPU on every
-    EXACT_CPU_STRIDE-th pixel under ``agree``'s gate (no K1-K6 kernel
-    may launch on this path);
+    exact DVR, EXACT_FRAMES frames through the Renderer's route, which
+    must be the packed one (``render/wavefront.py``): the scene's build
+    seconds and bytes on the card, the pack's build (grids s,
+    ``build_pack`` s, table MB, descent, start grid), the frame ms, one
+    profiled frame (launches, busy share), the peak MB, frame 0's packed
+    march at half its ray batch and at the batch in turns; frame 0's
+    packed rgba against the classic ``trace_dvr`` of the same rays on
+    the card (their region iterations logged) and against the packed
+    march on the CPU on every EXACT_CPU_STRIDE-th pixel, the classic
+    march against the CPU there, each under ``agree``'s gate (no K1-K6
+    kernel may launch on this path);
 16. ``headline_contour``: the headline fast path with one contour plane
     through the centre (colored from the exact scene), through the
     surface rows' phases: frames, launches, a profiled frame, K1 on a
     real chunk under the plane's stop against its plain twin, and the
     frame against its plain frame;
 17. ``blobs256_scene``: the 256^3 scene (7,431,411 cells) built with the
-    native core and moved to the card (build s, MB), then one exact
-    frame at BLOBS256_EXACT_SIZE;
+    native core and moved to the card (build s, MB), its pack (build s,
+    table MB, descent, macro-cell width), then one exact frame at
+    BLOBS256_EXACT_SIZE through the packed route (ms, peak MB), its
+    packed rgba against the classic march on every EXACT_CPU_STRIDE-th
+    pixel's rays under ``agree``;
 18. ``cli_exajet256``: the README's Quick start chain through the port's
     builder and offline CLI (``phase_cli_exajet256``);
 19. ``phase_levels``: K1 and K3 past 8 levels, seeded 1080p chunks of 9
@@ -163,7 +171,10 @@ kernel with its launches on every path, its error against its plain
 version, its time, its plain version's time, its bound and, for K5 and
 K6, the library call's time.
 Exits non-zero without a CUDA card or without the port's sources.
-Needs no JAX and no network.
+Needs no JAX and no network.  Before it exits, pass or fail, it stops
+every process it started (``stop_children``): multiprocessing's resource
+tracker, which the spawned cell pool and mesh ranks start, would
+otherwise outlive it for a moment.
 """
 
 from __future__ import annotations
@@ -225,9 +236,10 @@ GOLDEN_JITTER = {0: (0.11854469776153564, -0.06521260738372803),
 MESH_RADIUS, STREAM_RADIUS, STREAM_SEGMENTS = 0.3, 0.0375, 64
 SURF_K1_CHUNK = 2
 # the exact path: frames per row; every EXACT_CPU_STRIDE-th pixel of the
-# headline's exact frame 0 is held to the same port code on the CPU; the
-# blobs256 exact frame's size, fixed from the headline's exact frame time
-# in the chip run PERF.md records (1080p if under 15 s, else 960x540)
+# headline's exact frame 0 is held to the same port code on the CPU (and
+# of both rows' frame 0 to the classic march on the card); the blobs256
+# exact frame's size, fixed from the headline's exact frame time in the
+# chip run PERF.md records (1080p if under 15 s, else 960x540)
 EXACT_FRAMES, EXACT_CPU_STRIDE = 2, 64
 BLOBS256_EXACT_SIZE = (1920, 1080)
 # the headline_contour row's plane: normal z through the volume's centre
@@ -2098,33 +2110,77 @@ def exact_frames(r, n_frames):
     return times, first
 
 
+def build_exact_pack(r, host=None):
+    """Renderer ``r``'s pack for the packed route, built and timed (the
+    axis-2 grids first, then ``build_pack``), and, given the host scene,
+    its twin on the CPU.  Returns (record, CPU pack or None); a scene
+    whose ids pass 2^24 (``build_pack``'s ValueError, the JAX package's
+    rule) is named in the record and takes the classic route."""
+    import torch
+
+    from owlexabrick_tpu_torch.render import wavefront
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r._grids_for(2)
+    torch.cuda.synchronize()
+    grids_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pack = r._wavefront_pack()
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    if pack is None:
+        return dict(route="classic", grids_s=round(grids_s, 3),
+                    pack="refused: ids past 2^24 (ValueError)"), None
+    rec = dict(grids_s=round(grids_s, 3), pack_s=round(pack_s, 3),
+               pack_mb=round(pack.table_nbytes() / 1e6, 3),
+               grids_mb=round(nbytes(pack.flat) / 1e6, 3),
+               descent=pack.descent, start_grid=list(pack.grid_dims),
+               macro_cell=pack.grid_cw,
+               nodes=int(pack.node_pack.shape[0]),
+               levels=len(pack.grids.levels))
+    cpu_pack = None
+    if host is not None:
+        cpu_pack = wavefront.build_pack(host, pack.grids.to("cpu"))
+    return rec, cpu_pack
+
+
 def phase_headline_exact(device, card):
     """``headline_exact``: the 64^3 bench scene (native build, moved to
     the card) and camera at 1920x1080, exact DVR through
-    ``Renderer(scene)``, EXACT_FRAMES frames: the frame ms, its launches
-    and busy share (one profiled frame), the region iterations of frame
-    0's rays (``trace_dvr(..., return_stats=True)``), the peak MB and
-    frame 0's march at half the default ray batch and at the default, in
-    turns; one default batch of gradient-shaded rays (analytic and
-    central differences: ms and peak MB); frame 0 against the same port
-    code on the CPU on every
-    EXACT_CPU_STRIDE-th pixel under ``agree``'s gate.  No K1-K6 kernel
-    runs on this path."""
+    ``Renderer(scene)``, which takes the JAX Renderer's default route,
+    the packed march (``wavefront.trace_dvr_packed_compacted``): the
+    pack's build (grids s, ``build_pack`` s, table MB, descent, start
+    grid), EXACT_FRAMES frames (ms, launches and busy share from one
+    profiled frame, peak MB), frame 0's packed march at half its ray
+    batch and at the batch, in turns; frame 0's packed rgba against the
+    classic ``trace_dvr`` rgba of the same rays on the card (with their
+    region iterations) and against the packed march on the CPU on every
+    EXACT_CPU_STRIDE-th pixel, both under ``agree``'s gate; the classic
+    march on the card against the CPU on those pixels; one default batch
+    of gradient-shaded rays (classic: analytic and central differences,
+    ms and peak MB).  No K1-K6 kernel runs on this path."""
     import dataclasses
 
     import torch
 
     from owlexabrick_tpu_torch.render import prng
     from owlexabrick_tpu_torch.render.dvr import (
-        composite_background, generate_rays, ray_batch, trace_dvr)
+        generate_rays, ray_batch, trace_dvr)
     from owlexabrick_tpu_torch.render.renderer import (
         EXACT_SEED, RenderConfig, Renderer)
+    from owlexabrick_tpu_torch.render.wavefront import (
+        packed_batch, trace_dvr_packed, trace_dvr_packed_compacted)
 
     w, h, n = 1920, 1080, 64
     host, scene, cells, build_s, move_s = exact_scene(n, device)
     fs = bench_frame_state(n, float(cells[2].max()), w, h)
     r = Renderer(scene, w, h, cfg=RenderConfig(), frame_state=fs,
                  device=device)
+    pack_rec, cpu_pack = build_exact_pack(r, host)
+    if cpu_pack is None:
+        raise SystemExit(f"headline_exact: no pack ({pack_rec})")
+    pack = r._wavefront_pack()
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     times, first = exact_frames(r, EXACT_FRAMES)
@@ -2132,9 +2188,14 @@ def phase_headline_exact(device, card):
     counts = launch_counts()
     if any(counts.values()):
         raise SystemExit(f"the exact frame launched port kernels: {counts}")
+    route = r.exact_route
+    log(f"headline_exact: route {route}, pack {json.dumps(pack_rec)}")
+    if route != "packed_compacted":
+        raise SystemExit(f"headline_exact took the {route} route")
     prof = profile_once(r.render)
 
-    # frame 0's rays again, for their region iterations and the CPU check
+    # frame 0's rays again: packed and classic on the card, both on the
+    # CPU on every EXACT_CPU_STRIDE-th pixel
     p = w * h
     key = prng.fold_in(prng.prng_key(EXACT_SEED), 0)
     rays = []
@@ -2143,26 +2204,28 @@ def phase_headline_exact(device, card):
         off = prng.uniform(prng.fold_in(key, 2), (p,), dev)
         rays.append((*generate_rays(fs, w, h, jit, dev), off))
     o, d, off = rays[0]
+    packed = trace_dvr_packed_compacted(pack, scene, fs, r.cfg, o, d, off)
     t0 = time.perf_counter()
     rgba, iters = trace_dvr(scene, fs, r.cfg, o, d, off, return_stats=True)
     torch.cuda.synchronize()
     trace_ms = (time.perf_counter() - t0) * 1e3
-    # the ray batch: frame 0's march at half the default batch and at the
-    # default, in turns (ms and peak MB each)
-    batch = ray_batch(scene)
+    # the packed batch: frame 0's packed march at half the batch and at
+    # the batch, in turns (ms and peak MB each)
+    batch = packed_batch(pack)
     turns = []
     for b in (batch // 2, batch, batch, batch // 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trace_dvr(scene, fs, r.cfg, o, d, off, batch=b)
+        trace_dvr_packed(pack, scene, fs, r.cfg, o, d, off, batch=b)
         torch.cuda.synchronize()
         turns.append(dict(batch=b, ms=round(
             (time.perf_counter() - t0) * 1e3, 3), peak_mem_mb=round(
             torch.cuda.max_memory_allocated() / 1e6, 1)))
-    # gradient shading: one full default batch of frame 0's rays (every
-    # k-th pixel) with analytic gradients and with central differences
-    # (6 sample points a ray, so a sixth of the batch): ms and peak MB
+    # gradient shading (the classic march): one full default batch of
+    # frame 0's rays (every k-th pixel) with analytic gradients and with
+    # central differences (6 sample points a ray, so a sixth of the
+    # batch): ms and peak MB
     grad_batches = []
     for kw, pts in ((dict(), 1), (dict(analytic_gradients=False), 6)):
         cfg_g = dataclasses.replace(r.cfg, gradient_shading_dvr=True, **kw)
@@ -2181,12 +2244,16 @@ def phase_headline_exact(device, card):
     idx = torch.arange(0, p, EXACT_CPU_STRIDE)
     o_c, d_c, off_c = (x[idx] for x in rays[1])
     t0 = time.perf_counter()
-    want = composite_background(trace_dvr(host, fs, r.cfg, o_c, d_c, off_c),
-                                torch.zeros(3))
+    want = trace_dvr_packed(cpu_pack, host, fs, r.cfg, o_c, d_c, off_c)
     cpu_s = time.perf_counter() - t0
-    ok, mx, share = agree(first[idx.to(device)].cpu(), want)
-    same = float((composite_background(rgba, torch.zeros(3, device=device))
-                  - first).abs().max())
+    want_classic = trace_dvr(host, fs, r.cfg, o_c, d_c, off_c)
+    checks = dict(
+        packed_vs_classic=agree(packed, rgba),
+        packed_card_vs_cpu=agree(packed[idx.to(device)].cpu(), want),
+        classic_card_vs_cpu=agree(rgba[idx.to(device)].cpu(),
+                                  want_classic))
+    # frame 0 is the packed march's rgba over the black background
+    same = float((packed[:, :3] * packed[:, 3:4] - first).abs().max())
     rec = dict(
         row="headline_exact", card=card, cells=int(cells[0].shape[0]),
         regions=int(scene.region_lo.shape[0]),
@@ -2194,25 +2261,27 @@ def phase_headline_exact(device, card):
         max_bricks_per_region=scene.max_bricks_per_region,
         tree_depth=scene.tree_depth, scene_build_s=round(build_s, 3),
         scene_to_card_s=round(move_s, 3),
-        scene_mb=round(scene.nbytes() / 1e6, 3), frames_ms=times,
-        trace_dvr_frame0_ms=round(trace_ms, 3), batch_turns=turns,
-        gradient_batches=grad_batches,
+        scene_mb=round(scene.nbytes() / 1e6, 3), route=route, **pack_rec,
+        frames_ms=times, trace_dvr_frame0_ms=round(trace_ms, 3),
+        packed_batch_turns=turns, gradient_batches=grad_batches,
         peak_mem_mb=round(peak_mb, 1),
         region_iters=dict(mean=float(iters.mean()),
                           max=float(iters.max()),
                           total=float(iters.sum()),
                           rays_marched=int((iters > 0).sum())),
         frame0_retrace_max_abs=same,
-        cpu_check=dict(rays=int(idx.numel()), max_abs=mx,
-                       share_within_1e4=share, cpu_s=round(cpu_s, 1)),
+        checks={k: dict(ok=v[0], max_abs=v[1], share_within_1e4=v[2])
+                for k, v in checks.items()},
+        cpu_rays=int(idx.numel()), cpu_packed_s=round(cpu_s, 1),
         lit_share=float((first > 0.05).any(-1).float().mean()),
         **profile_record(times[-1], prof))
     log("exact path:", json.dumps(rec))
     if not bool(torch.isfinite(r.accum).all()) or rec["lit_share"] < 0.05:
         raise SystemExit("headline_exact: frames not finite or blank")
-    if not ok:
-        raise SystemExit(f"headline_exact: card frame 0 disagrees with the "
-                         f"CPU (max {mx}, share {share})")
+    for k, (ok, mx, share) in checks.items():
+        if not ok:
+            raise SystemExit(f"headline_exact: {k} disagrees (max {mx}, "
+                             f"share {share})")
     if same > 1e-6:
         raise SystemExit(f"headline_exact: frame 0 retraced differs {same}")
     if not all(g["finite"] for g in grad_batches):
@@ -2253,11 +2322,19 @@ def contour_row(setups, device, width, height):
 
 def phase_blobs256_scene(device, card):
     """``blobs256_scene``: the 256^3 bench scene built with the native
-    core and moved to the card (build s, scene MB), then one exact frame
-    at BLOBS256_EXACT_SIZE with the bench camera."""
+    core and moved to the card (build s, scene MB), its pack (grids s,
+    ``build_pack`` s, table MB, descent, the start grid's macro-cell
+    width), then one exact frame at BLOBS256_EXACT_SIZE with the bench
+    camera through the packed route (ms, peak MB), and its packed rgba
+    against the classic ``trace_dvr`` on every EXACT_CPU_STRIDE-th
+    pixel's rays on the card under ``agree``."""
     import torch
 
-    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+    from owlexabrick_tpu_torch.render import prng
+    from owlexabrick_tpu_torch.render.dvr import generate_rays, trace_dvr
+    from owlexabrick_tpu_torch.render.renderer import (
+        EXACT_SEED, RenderConfig, Renderer)
+    from owlexabrick_tpu_torch.render.wavefront import trace_dvr_packed
 
     n = 256
     w, h = BLOBS256_EXACT_SIZE
@@ -2265,8 +2342,31 @@ def phase_blobs256_scene(device, card):
     fs = bench_frame_state(n, float(cells[2].max()), w, h)
     r = Renderer(scene, w, h, cfg=RenderConfig(), frame_state=fs,
                  device=device)
+    pack_rec, _ = build_exact_pack(r)
+    log(f"blobs256_scene: pack {json.dumps(pack_rec)}")
     torch.cuda.reset_peak_memory_stats()
     times, first = exact_frames(r, 1)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    route = r.exact_route
+    if route != "packed_compacted":
+        raise SystemExit(f"blobs256_scene took the {route} route")
+    # frame 0's rays on every EXACT_CPU_STRIDE-th pixel: packed against
+    # classic on the card
+    p = w * h
+    key = prng.fold_in(prng.prng_key(EXACT_SEED), 0)
+    jit = prng.uniform(prng.fold_in(key, 1), (p, 2), device)
+    off = prng.uniform(prng.fold_in(key, 2), (p,), device)
+    o, d = generate_rays(fs, w, h, jit, device)
+    idx = torch.arange(0, p, EXACT_CPU_STRIDE, device=device)
+    packed = trace_dvr_packed(r._wavefront_pack(), scene, fs, r.cfg,
+                              o[idx], d[idx], off[idx])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    classic = trace_dvr(scene, fs, r.cfg, o[idx], d[idx], off[idx])
+    torch.cuda.synchronize()
+    classic_ms = (time.perf_counter() - t0) * 1e3
+    ok, mx, share = agree(packed, classic)
+    same = float((packed[:, :3] * packed[:, 3:4] - first[idx]).abs().max())
     rec = dict(row="blobs256_scene", card=card,
                cells=int(cells[0].shape[0]),
                regions=int(scene.region_lo.shape[0]),
@@ -2274,13 +2374,22 @@ def phase_blobs256_scene(device, card):
                max_bricks_per_region=scene.max_bricks_per_region,
                tree_depth=scene.tree_depth, scene_build_s=round(build_s, 3),
                scene_to_card_s=round(move_s, 3),
-               scene_mb=round(scene.nbytes() / 1e6, 3),
-               exact_frame=[w, h], frames_ms=times,
-               peak_mem_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
+               scene_mb=round(scene.nbytes() / 1e6, 3), route=route,
+               **pack_rec, exact_frame=[w, h], frames_ms=times,
+               peak_mem_mb=round(peak_mb, 1),
+               packed_vs_classic=dict(rays=int(idx.numel()), ok=ok,
+                                      max_abs=mx, share_within_1e4=share,
+                                      classic_ms=round(classic_ms, 3)),
+               frame0_retrace_max_abs=same,
                lit_share=float((first > 0.05).any(-1).float().mean()))
     log("exact path:", json.dumps(rec))
     if not bool(torch.isfinite(r.accum).all()) or rec["lit_share"] < 0.05:
         raise SystemExit("blobs256_scene: frame not finite or blank")
+    if not ok:
+        raise SystemExit(f"blobs256_scene: packed disagrees with classic "
+                         f"(max {mx}, share {share})")
+    if same > 1e-6:
+        raise SystemExit(f"blobs256_scene: frame 0 retraced differs {same}")
     return rec
 
 
@@ -3598,5 +3707,69 @@ def main() -> int:
     return 0
 
 
+def _children(pid):
+    """The live processes whose parent is ``pid`` (from /proc)."""
+    kids = []
+    for d in pathlib.Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+        except OSError:
+            continue
+        # the fields after the command's closing parenthesis: state, ppid
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            kids.append(int(d.name))
+    return kids
+
+
+def stop_children(timeout=10.0):
+    """Stops every process this one started and left running, so none
+    outlives the script: multiprocessing's resource tracker (started by
+    the first spawned pool or rank, it otherwise lives until this process
+    has exited) and then any other child and its descendants, terminated,
+    killed after ``timeout`` seconds, and reaped.  Logs what it ended."""
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        try:
+            stop()
+        except ChildProcessError:  # already reaped
+            pass
+    if not pathlib.Path("/proc").is_dir():
+        return
+    tree, todo = [], _children(os.getpid())
+    while todo:
+        pid = todo.pop()
+        tree.append(pid)
+        todo += _children(pid)
+    if not tree:
+        return
+    log("stopping processes left running:", tree)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in tree:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            for pid in tree:
+                try:  # reaps a child; a grandchild's parent reaps it
+                    os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass
+            if not any(pathlib.Path(f"/proc/{p}").exists() for p in tree):
+                return
+            time.sleep(0.05)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

@@ -1,7 +1,8 @@
 """Carry state over from the JAX package.
 
-The reference's ``Scene``, ``LevelGrids``, ``FrameState``, ``ShearWarp``
-and ``SurfaceData`` fields, read as numpy arrays, become the port's objects,
+The reference's ``Scene``, ``LevelGrids``, ``FrameState``, ``ShearWarp``,
+``SurfaceData`` and ``WavefrontPack`` fields, read as numpy arrays, become
+the port's objects,
 so tests can run both packages from the same state (the renderer's
 analog of loading a reference model's weights).  Works on the
 reference objects without importing ``jax``: every field is read
@@ -21,6 +22,7 @@ from .render.frame import FrameState
 from .render.shearwarp import ShearWarp
 from .render.slabs import LevelGrids, render_device
 from .render.surfaces import SurfaceData
+from .render.wavefront import WavefrontPack, pack_from_tables
 
 
 def level_grids_from_reference(ref, device="cuda") -> LevelGrids:
@@ -95,3 +97,18 @@ def scene_from_reference(ref, device="cuda") -> Scene:
             "num_channels", "max_bricks_per_region", "tree_depth")
         else np.asarray(getattr(ref, f.name))
         for f in dataclasses.fields(Scene)})
+
+
+def pack_from_reference(ref, grids, device="cuda") -> WavefrontPack:
+    """The reference's ``WavefrontPack`` as the port's, on ``device`` (the
+    card unless the caller asks for the CPU): its node table, start grid
+    and their geometry as they are, and the sampling data from the
+    reference's axis-2 ``LevelGrids`` ``grids`` (the port's pack holds
+    grids where the reference's holds its row tables)."""
+    if (tuple(ref.level_cw) != tuple(float(1 << l) for l in grids.levels)
+            or ref.num_channels != grids.num_channels):
+        raise ValueError("the grids are not the ones the pack was built on")
+    return pack_from_tables(
+        np.asarray(ref.node_pack), np.asarray(ref.start_grid), ref.grid_org,
+        ref.grid_cw, ref.grid_dims, ref.descent,
+        level_grids_from_reference(grids, device))

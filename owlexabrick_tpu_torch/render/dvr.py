@@ -49,8 +49,10 @@ class RenderConfig:
     The slab fast path reads ``num_channels``, the shading and iso
     switches, ``ao_samples`` / ``ao_dirs``, ``colormap_channel`` and
     ``adaptive_stride``; the exact path reads the rest.
-    ``wavefront_compaction`` only exists for the JAX package's parity
-    (the port's exact march is compacted always)."""
+    ``wavefront_compaction`` picks the Renderer's packed exact route, as
+    in the JAX Renderer: on, ``wavefront.trace_dvr_packed_compacted``;
+    off, ``render_step_packed`` (the port marches only live rays either
+    way, so the two give the same frame)."""
 
     num_channels: int = 1
     gradient_shading_dvr: bool = False
@@ -390,11 +392,18 @@ def _march_step(scene, xf: XFTensors, cfg: RenderConfig, act_mask, rid, d,
                                                                   min=1e-38))
             use = _sqrt_rn(g2) > finest_cw * 1e-6
             rgb = torch.where(use[:, None], rgb * shade[:, None], rgb)
-        a = 1.0 - _pow_rn(1.0 - a, actual_dt)
-        contrib = torch.where(ok & take_dt, (1.0 - rgba[:, 3]) * a, 0.0)
-        rgba = torch.cat([rgba[:, :3] + contrib[:, None] * rgb,
-                          (rgba[:, 3] + contrib)[:, None]], 1)
+        rgba = composite(rgba, rgb, a, ok & take_dt, actual_dt)
     return [rgba], rgba[:, 3] >= TERMINATION_THRESHOLD
+
+
+def composite(rgba, rgb, a, take, actual_dt):
+    """One classified sample composited front to back into rgba (n, 4):
+    the opacity corrected over ``actual_dt`` (1 - (1 - a)^dt), then added
+    where ``take`` (integrateBrick, exabrick.cu:1160-1175)."""
+    a = 1.0 - _pow_rn(1.0 - a, actual_dt)
+    contrib = torch.where(take, (1.0 - rgba[:, 3]) * a, 0.0)
+    return torch.cat([rgba[:, :3] + contrib[:, None] * rgb,
+                      (rgba[:, 3] + contrib)[:, None]], 1)
 
 
 def _march_region(scene, xf: XFTensors, o, d, rid, active, t0, t1, offset,
@@ -438,14 +447,27 @@ def _march_region(scene, xf: XFTensors, o, d, rid, active, t0, t1, offset,
             sub = [v[keep] for v in sub]
 
 
+def bsp_locator(scene):
+    """The walk's default point location: the BSP descent
+    (``locate_leaf``), returning (region id, leaf box lo, hi)."""
+    def locate(p):
+        node = locate_leaf(scene, p)
+        return scene.tree_leaf[node], scene.tree_lo[node], scene.tree_hi[node]
+    return locate
+
+
 def march_rays(scene, xf: XFTensors, o, d, offset, t_start, t_end,
-               act_mask, max_iters: int, state, sample, region_done):
+               act_mask, max_iters: int, state, sample, region_done,
+               locate=None):
     """The region walk shared by the DVR and iso marches (the raygen
     loop, exabrick.cu:1662-1699): each voxel-space ray (unit d) is
     clipped to the BSP root box and, up to ``max_iters`` times, locates
     its region at t_cur + eps, clips itself to the leaf box, marches the
     interval if the region is active in ``act_mask`` (``_march_region``
     with the per-sample functor ``sample``) and advances past the box.
+    ``locate(points (n, 3)) -> (region id (n,), box lo (n, 3), box hi
+    (n, 3))``: the point location (default ``bsp_locator(scene)``; the
+    packed walk passes ``wavefront.locate_packed``'s).
 
     ``state``: per-ray tensors (first dim P), the initial values.
     ``sample(rid, d, finest_cw, pos, t_sample, actual_dt, state) ->
@@ -455,6 +477,7 @@ def march_rays(scene, xf: XFTensors, o, d, offset, t_start, t_end,
     stepped (gathered by index, the finished scattered back).  Returns
     (state, region iterations (P,) float32)."""
     p = o.shape[0]
+    locate = locate or bsp_locator(scene)
     hitb, tb0, tb1 = ray_box_root(scene, o, d, t_start, t_end)
     span = torch.clamp(tb1 - tb0, min=0.0)
     eps = torch.clamp(span * 1e-6, min=1e-5)
@@ -471,10 +494,8 @@ def march_rays(scene, xf: XFTensors, o, d, offset, t_start, t_end,
             break
         o_l, d_l, off_l, lim, ep, tc = ray
         probe = o_l + torch.minimum(tc + ep, lim)[:, None] * d_l
-        node = locate_leaf(scene, probe)
-        rid = scene.tree_leaf[node]
-        hit, t0, t1 = ray_box(o_l, d_l, scene.tree_lo[node],
-                              scene.tree_hi[node], tc, lim)
+        rid, box_lo, box_hi = locate(probe)
+        hit, t0, t1 = ray_box(o_l, d_l, box_lo, box_hi, tc, lim)
         # a probe that missed (degenerate leaf) steps on by eps
         t1 = torch.where(hit, t1, tc + ep)
         rc = torch.clamp(rid, min=0)
@@ -517,14 +538,15 @@ def voxel_rays(scene, o_world, d_world):
 
 
 def march_batches(scene, xf, rays, offset, act_mask, max_iters, state,
-                  sample, region_done, batch: int):
+                  sample, region_done, batch: int, locate=None):
     """``march_rays`` over the voxel rays (o, d, t_start, t_end) in
     batches of ``batch`` rays; returns the concatenated (state, iters)."""
     o, d, t_start, t_end = rays
     outs = [march_rays(scene, xf, o[i:i + batch], d[i:i + batch],
                        offset[i:i + batch], t_start[i:i + batch],
                        t_end[i:i + batch], act_mask, max_iters,
-                       [s[i:i + batch] for s in state], sample, region_done)
+                       [s[i:i + batch] for s in state], sample, region_done,
+                       locate)
             for i in range(0, o.shape[0], batch)]
     return ([torch.cat([s[j] for s, _ in outs]) for j in range(len(state))],
             torch.cat([it for _, it in outs]))
@@ -552,6 +574,29 @@ def trace_dvr(scene, fs, cfg: RenderConfig, o_world, d_world, offset,
     clock heat map, exabrick.cu:1703-1707).  ``cfg.max_region_iters``
     caps every ray's region iterations.  ``batch``: rays per batch
     (default ``ray_batch`` for the config's sample points)."""
+    rays, offset, xf, act_mask = dvr_setup(scene, fs, cfg, o_world, d_world,
+                                           offset, t_end_world, t_start_world)
+    cd = cfg.gradient_shading_dvr and not (cfg.basis_method
+                                           and cfg.analytic_gradients)
+
+    def sample(rid, d_l, finest_cw, pos, _t, actual_dt, st):
+        return _march_step(scene, xf, cfg, act_mask, rid, d_l, finest_cw,
+                           pos, actual_dt, st)
+
+    (rgba,), iters = march_batches(
+        scene, xf, rays, offset, act_mask, cfg.max_region_iters,
+        [torch.zeros((offset.shape[0], 4), dtype=torch.float32,
+                     device=offset.device)], sample,
+        _dvr_region_done, batch or ray_batch(scene, 6 if cd else 1))
+    return (rgba, iters) if return_stats else rgba
+
+
+def dvr_setup(scene, fs, cfg: RenderConfig, o_world, d_world, offset,
+              t_end_world=None, t_start_world=None):
+    """A DVR march's inputs on the scene's device: the voxel rays (o, d,
+    t_start, t_end) (world t scaled to voxel t; [0, 2e10] by default),
+    the jitter offsets, the frame's transfer functions and the per-region
+    active mask (all ones without space skipping)."""
     dev = scene.scalars.device
     o, d, dt_scale = voxel_rays(scene, o_world, d_world)
     p = o.shape[0]
@@ -568,19 +613,7 @@ def trace_dvr(scene, fs, cfg: RenderConfig, o_world, d_world, offset,
     else:
         act_mask = torch.ones(scene.region_value_range.shape[0],
                               dtype=torch.bool, device=dev)
-    cd = cfg.gradient_shading_dvr and not (cfg.basis_method
-                                           and cfg.analytic_gradients)
-
-    def sample(rid, d_l, finest_cw, pos, _t, actual_dt, st):
-        return _march_step(scene, xf, cfg, act_mask, rid, d_l, finest_cw,
-                           pos, actual_dt, st)
-
-    (rgba,), iters = march_batches(
-        scene, xf, (o, d, t_start, t_end), offset, act_mask,
-        cfg.max_region_iters,
-        [torch.zeros((p, 4), dtype=torch.float32, device=dev)], sample,
-        _dvr_region_done, batch or ray_batch(scene, 6 if cd else 1))
-    return (rgba, iters) if return_stats else rgba
+    return (o, d, t_start, t_end), offset, xf, act_mask
 
 
 # ----------------------------------------------------------------------------

@@ -2,11 +2,17 @@
 owns the exact scene or the cells, the level grids, the surfaces, the
 frame state and the accumulation buffer, and renders progressive frames.
 
-Without ``enable_fast_path()`` a frame is the exact one (``render_step``,
-the JAX package's default frame): jittered per-pixel rays, the surface
-pass (meshes, streamlines, contour planes, the exact iso march and their
-AO, ``surfaces.trace_surface_pass``), the clip box, the region march
-(``dvr.trace_dvr``) and accumulation.
+Without ``enable_fast_path()`` a frame is the exact one: jittered
+per-pixel rays, the surface pass (meshes, streamlines, contour planes,
+the exact iso march and their AO, ``surfaces.trace_surface_pass``), the
+clip box, the region march and accumulation.  The march takes the JAX
+Renderer's route (its ``render``, renderer.py:934-960): the packed march
+(``wavefront.trace_dvr_packed_compacted``, or ``render_step_packed``
+with ``RenderConfig.wavefront_compaction`` off) whenever the config
+samples the basis without gradient shading and the scene's pack builds
+(``wavefront.build_pack`` refuses past 2^24 node or region ids), else
+``render_step`` (``dvr.trace_dvr``).  ``exact_route`` names the route of
+the last exact frame.
 
 ``enable_fast_path()`` switches to the slab sweep (``render_slabs_camera``):
 an axis-aligned camera directly, any other through shear-warp (an
@@ -44,7 +50,7 @@ import torch
 
 from ..core.types import Scene
 from ..pipeline import scene_from_cells
-from . import prng
+from . import prng, wavefront
 from .ao_sweep import ao_shadow_fast, build_ao_lattice, lattice_to
 from .camera import Camera
 from .dvr import (RenderConfig, _dot3, accumulate, composite_background,
@@ -162,6 +168,25 @@ def render_step(scene, fs: FrameState, surf: SurfaceData, accum, *,
     jittered rays -> surfaces -> clip box -> DVR -> background composite
     -> accumulation, on the scene's device.  Returns (new_accum (P, 4),
     RGBA8 words (P,) int64, display color (P, 3))."""
+    return _exact_frame(scene, fs, surf, accum, cfg, width, height,
+                        trace_dvr)
+
+
+def render_step_packed(pack, scene, fs: FrameState, surf: SurfaceData,
+                       accum, *, cfg: RenderConfig, width: int,
+                       height: int):
+    """``render_step`` with the packed march (``wavefront.trace_dvr_packed``
+    over ``pack``, a ``wavefront.build_pack`` of the scene): the same
+    rays, surfaces, clip box and accumulation."""
+    def trace(*args, **kw):
+        return wavefront.trace_dvr_packed(pack, *args, **kw)
+
+    return _exact_frame(scene, fs, surf, accum, cfg, width, height, trace)
+
+
+def _exact_frame(scene, fs, surf, accum, cfg, width, height, trace):
+    """An exact frame whose DVR is ``trace(scene, fs, cfg, o, d, offset,
+    t_end_world=, t_start_world=)``."""
     dev = scene.device
     p = width * height
     key = prng.fold_in(prng.prng_key(EXACT_SEED), int(fs.frame_id))
@@ -184,8 +209,8 @@ def render_step(scene, fs: FrameState, surf: SurfaceData, accum, *,
         t_end = torch.where(chit, c1, 0.0)
     else:
         t_start, t_end = torch.zeros_like(t_hit), t_hit
-    rgba = trace_dvr(scene, fs, cfg, o, d, offset, t_end_world=t_end,
-                     t_start_world=t_start)
+    rgba = trace(scene, fs, cfg, o, d, offset, t_end_world=t_end,
+                 t_start_world=t_start)
     color = composite_background(rgba, bg)
     new_accum, shown = accumulate(color, accum, int(fs.frame_id))
     return new_accum, pack_rgba8(shown), shown
@@ -262,6 +287,8 @@ class Renderer:
                 clip_hi=self.world_bounds_hi.copy())
         self.fs = frame_state
         self._grids_cache = {}
+        self._pack = None
+        self.exact_route = None
         self._ao_lat = None
         self._fast = None
         self._cam_cache = None
@@ -726,17 +753,57 @@ class Renderer:
         words = pack_rgba8(shown).cpu().numpy().astype(np.uint32)
         return words.reshape(self.height, self.width)
 
+    # -- exact path ------------------------------------------------------
+    def _wavefront_pack(self):
+        """The packed march's tables, built at first need and kept (the
+        JAX Renderer's ``_wavefront_pack``): None where the config needs
+        the classic sampler, or where the scene's ids exceed the packed
+        range (``build_pack`` raises ``ValueError``; remembered as
+        False).  The axis-2 grids become the pack's views of its flat
+        buffer, so they are held once."""
+        if not self.cfg.basis_method or self.cfg.gradient_shading_dvr:
+            return None
+        if self._pack is None:
+            try:
+                self._pack = wavefront.build_pack(self.scene,
+                                                  self._grids_for(2))
+                self._grids_cache[2] = self._pack.grids
+            except ValueError:
+                self._pack = False  # scene exceeds the packed id range
+        return self._pack or None
+
+    def _render_packed_compacted(self, pack):
+        """The JAX Renderer's compacted packed frame
+        (``wavefront.trace_dvr_packed_compacted``)."""
+        def trace(*args, **kw):
+            return wavefront.trace_dvr_packed_compacted(pack, *args, **kw)
+
+        return _exact_frame(self.scene, self.fs, self.surf, self.accum,
+                            self.cfg, self.width, self.height, trace)
+
     # -- frame ----------------------------------------------------------
     def render(self) -> np.ndarray:
         """Render one progressive frame (the fast path's once
-        ``enable_fast_path()`` ran, else the exact one); returns (H, W)
-        uint32 RGBA8."""
+        ``enable_fast_path()`` ran, else the exact one on the JAX
+        Renderer's route); returns (H, W) uint32 RGBA8."""
         if self._fast is not None:
             rgba8 = self._render_fast()
         else:
-            self.accum, words, _ = render_step(
-                self.scene, self.fs, self.surf, self.accum, cfg=self.cfg,
-                width=self.width, height=self.height)
+            pack = self._wavefront_pack()
+            if pack is not None and self.cfg.wavefront_compaction:
+                self.exact_route = "packed_compacted"
+                out = self._render_packed_compacted(pack)
+            elif pack is not None:
+                self.exact_route = "packed"
+                out = render_step_packed(
+                    pack, self.scene, self.fs, self.surf, self.accum,
+                    cfg=self.cfg, width=self.width, height=self.height)
+            else:
+                self.exact_route = "classic"
+                out = render_step(
+                    self.scene, self.fs, self.surf, self.accum, cfg=self.cfg,
+                    width=self.width, height=self.height)
+            self.accum, words, _ = out
             rgba8 = words.cpu().numpy().astype(np.uint32).reshape(
                 self.height, self.width)
         self.fs = dataclasses.replace(self.fs,
