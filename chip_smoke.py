@@ -506,11 +506,12 @@ def k1_check(name, ci, prep, pt, tables, width, height, timing=True,
 
     from owlexabrick_tpu_torch.render.sweep import (
         k1_launch_shape, sweep_chunk_cuda, sweep_chunk_reference)
+    from owlexabrick_tpu_torch.utils.profiling import counts
 
     kw = dict(act_f=ci["act_f"], act_all_f=ci["act_all_f"], prev_trans=pt,
               t_stop=stop)
     args = (prep, ci["sec"], ci["live"], tables, ci["dz"], height, width)
-    n0 = sweep_chunk_cuda.launches
+    n0 = counts["launch.K1"]
     rgb_k, t_k = sweep_chunk_cuda(*args, **kw)
     rgb_p, t_p = sweep_chunk_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -544,7 +545,7 @@ def k1_check(name, ci, prep, pt, tables, width, height, timing=True,
                    *[t for t in tables if isinstance(t, torch.Tensor)],
                    *(stop or ()), rgb_k, t_k),
             samples * (3 * comps * len(prep.mids) + OPS_K1_BASE))
-    res["k1_launches"] = sweep_chunk_cuda.launches - n0
+    res["k1_launches"] = counts["launch.K1"] - n0
     log("k1 check:", json.dumps(res))
     if not mx <= TOL_K1 or not bool(torch.isfinite(t_k).all()):
         raise SystemExit(f"K1 disagrees with its plain version on {name}: "
@@ -774,27 +775,25 @@ def render_row(row, width, height, cfg=None, cache=None):
                                camera_cache=cache)
 
 
-def _launchers():
-    from owlexabrick_tpu_torch.render.classify import (
-        classify_field_cuda, composite_mids_cuda, xf_classify_cuda)
-    from owlexabrick_tpu_torch.render.mids import xresample_mids_levels_cuda
-    from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
-    from owlexabrick_tpu_torch.render.warp import (
-        warp_pass1_cuda, warp_pass2_cuda)
-
-    return dict(K1=sweep_chunk_cuda, K2a=warp_pass1_cuda,
-                K2b=warp_pass2_cuda, K3=composite_mids_cuda,
-                K4=classify_field_cuda, K5=xf_classify_cuda,
-                K6=xresample_mids_levels_cuda)
+KERNEL_IDS = ("K1", "K2a", "K2b", "K3", "K4", "K5", "K6")
+# the launch counters at the last reset_launch_counts()
+_launches0 = {}
 
 
 def launch_counts():
-    return {k: fn.launches for k, fn in _launchers().items()}
+    """Each kernel's launches since the last ``reset_launch_counts()``."""
+    from owlexabrick_tpu_torch.utils.profiling import counts
+
+    return {k: counts[f"launch.{k}"] - _launches0.get(k, 0)
+            for k in KERNEL_IDS}
 
 
 def reset_launch_counts():
-    for fn in _launchers().values():
-        fn.launches = 0
+    """Snapshot the launch counters; ``launch_counts()`` counts from
+    here."""
+    from owlexabrick_tpu_torch.utils.profiling import counts
+
+    _launches0.update({k: counts[f"launch.{k}"] for k in KERNEL_IDS})
 
 
 def phase_rows(rows, width, height, n_timed=3):

@@ -17,8 +17,9 @@ and the stand-alone LUT lookup.
 
 Each has a plain-torch version (``*_reference``), a launcher of the
 hand-written Hopper kernel in ``csrc/xf.cu`` (``*_cuda``, counting its
-launches in ``.launches``) and a dispatcher: CPU tensors take the plain
-version, CUDA tensors launch the kernel or raise, and ``plain=True``
+launches in ``utils.profiling.counts``: ``launch.K3`` ... ``launch.K5``)
+and a dispatcher: CPU tensors take the plain version, CUDA tensors
+launch the kernel or raise, and ``plain=True``
 (``SlabConfig.plain_sweep``) is the one explicit way to run the plain
 version on the card.  ``composite_chunk_reference``, K3's composite
 over (S, H, W) fields, is the JAX package's ``composite_chunk`` in
@@ -36,6 +37,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 
 def _domain(domain):
@@ -222,11 +225,8 @@ def composite_mids_cuda(mids, ytaps, scale, t_start, t_stop, sec, lut,
                    ptr(t_start), ptr(t_stop), ptr(sec), ptr(lut), ptr(out),
                    s_, h, w, n, cf(lo), cf(hi), cf(np.float32(dz)),
                    kernels.stream_arg(dev))
-    composite_mids_cuda.launches += 1
+    profiling.count("launch.K3")
     return out[:3], out[3]
-
-
-composite_mids_cuda.launches = 0
 
 
 def composite_mids(mids, ytaps, scale, t_start, t_stop, sec, lut, domain,
@@ -268,11 +268,8 @@ def classify_field_cuda(sw, swv, sec, lut, domain, dz):
                    vp(lut.data_ptr()), vp(out.data_ptr()), s_, h, w, n,
                    cf(lo), cf(hi), cf(np.float32(dz)),
                    kernels.stream_arg(sw.device))
-    classify_field_cuda.launches += 1
+    profiling.count("launch.K4")
     return out[0], out[1], out[2], out[3]
-
-
-classify_field_cuda.launches = 0
 
 
 def classify_field(sw, swv, sec, lut, domain, dz, plain: bool = False):
@@ -322,11 +319,8 @@ def xf_classify_cuda(u: torch.Tensor, lut: torch.Tensor):
     kernels.launch("owx_xf_classify", "K5", vp(u.data_ptr()),
                    vp(lut.data_ptr()), vp(out.data_ptr()), u.numel(), n,
                    kernels.stream_arg(dev))
-    xf_classify_cuda.launches += 1
+    profiling.count("launch.K5")
     return out[0], out[1], out[2], out[3]
-
-
-xf_classify_cuda.launches = 0
 
 
 def xf_classify(u: torch.Tensor, lut: torch.Tensor, plain: bool = False):

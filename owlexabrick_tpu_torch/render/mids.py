@@ -12,7 +12,8 @@ package's dense tent matrix entries, ``tent_taps``).
 The plain version (``xresample_mids_reference``, per level), a launcher
 of the hand-written Hopper kernel in ``csrc/mids.cu``
 (``xresample_mids_levels_cuda``: one launch for up to
-``K6_MAX_LEVELS`` levels, counting its launches in ``.launches``) and
+``K6_MAX_LEVELS`` levels, counting its launches in
+``utils.profiling.counts["launch.K6"]``) and
 dispatchers: CPU tensors take the plain version, CUDA tensors launch the
 kernel or raise, and ``plain=True`` picks the plain version on the card.
 ``xresample_mids`` is the same for one level.  None of the TPU kernel's
@@ -24,6 +25,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ..utils import profiling
 
 
 def tent_taps(q: torch.Tensor, n: int):
@@ -117,11 +120,8 @@ def xresample_mids_levels_cuda(zvs_list, qx_list):
             (ci * n)(*[zvs_list[l].shape[2] for l in grp]),
             (ci * n)(*[zvs_list[l].shape[3] for l in grp]),
             n, n_comp, s_, w_, kernels.stream_arg(dev))
-        xresample_mids_levels_cuda.launches += 1
+        profiling.count("launch.K6")
     return outs
-
-
-xresample_mids_levels_cuda.launches = 0
 
 
 def xresample_mids_levels(zvs_list, qx_list, plain: bool = False):

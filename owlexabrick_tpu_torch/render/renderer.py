@@ -50,6 +50,7 @@ import torch
 
 from ..core.types import Scene
 from ..pipeline import scene_from_cells
+from ..utils import profiling
 from . import prng, wavefront
 from .ao_sweep import ao_shadow_fast, build_ao_lattice, lattice_to
 from .camera import Camera
@@ -294,6 +295,7 @@ class Renderer:
         self._cam_cache = None
         self._last_pose = None
         self._last_pose_grids = None
+        self.frames_rendered = 0  # render() calls, the frame spans' id
         self.reset_accumulation()
 
     @property
@@ -750,8 +752,11 @@ class Renderer:
                                shift_j=jy, plain=scfg.plain_sweep)
         self.accum, shown = accumulate(color, self.accum,
                                        int(self.fs.frame_id))
-        words = pack_rgba8(shown).cpu().numpy().astype(np.uint32)
-        return words.reshape(self.height, self.width)
+        words = pack_rgba8(shown)
+        with profiling.sync("sync.readback", words):
+            words = words.cpu()
+        return words.numpy().astype(np.uint32).reshape(self.height,
+                                                        self.width)
 
     # -- exact path ------------------------------------------------------
     def _wavefront_pack(self):
@@ -785,30 +790,37 @@ class Renderer:
     def render(self) -> np.ndarray:
         """Render one progressive frame (the fast path's once
         ``enable_fast_path()`` ran, else the exact one on the JAX
-        Renderer's route); returns (H, W) uint32 RGBA8."""
-        if self._fast is not None:
-            rgba8 = self._render_fast()
-        else:
-            pack = self._wavefront_pack()
-            if pack is not None and self.cfg.wavefront_compaction:
-                self.exact_route = "packed_compacted"
-                out = self._render_packed_compacted(pack)
-            elif pack is not None:
-                self.exact_route = "packed"
-                out = render_step_packed(
-                    pack, self.scene, self.fs, self.surf, self.accum,
-                    cfg=self.cfg, width=self.width, height=self.height)
-            else:
-                self.exact_route = "classic"
-                out = render_step(
-                    self.scene, self.fs, self.surf, self.accum, cfg=self.cfg,
-                    width=self.width, height=self.height)
-            self.accum, words, _ = out
-            rgba8 = words.cpu().numpy().astype(np.uint32).reshape(
-                self.height, self.width)
+        Renderer's route); returns (H, W) uint32 RGBA8.  The frame is a
+        ``frame`` span with id ``frames_rendered`` (``utils.profiling``)."""
+        with profiling.frame(self.frames_rendered):
+            rgba8 = self._render()
+        self.frames_rendered += 1
         self.fs = dataclasses.replace(self.fs,
                                       frame_id=self.fs.frame_id + 1)
         return rgba8
+
+    def _render(self) -> np.ndarray:
+        if self._fast is not None:
+            return self._render_fast()
+        pack = self._wavefront_pack()
+        if pack is not None and self.cfg.wavefront_compaction:
+            self.exact_route = "packed_compacted"
+            out = self._render_packed_compacted(pack)
+        elif pack is not None:
+            self.exact_route = "packed"
+            out = render_step_packed(
+                pack, self.scene, self.fs, self.surf, self.accum,
+                cfg=self.cfg, width=self.width, height=self.height)
+        else:
+            self.exact_route = "classic"
+            out = render_step(
+                self.scene, self.fs, self.surf, self.accum, cfg=self.cfg,
+                width=self.width, height=self.height)
+        self.accum, words, _ = out
+        with profiling.sync("sync.readback", words):
+            words = words.cpu()
+        return words.numpy().astype(np.uint32).reshape(self.height,
+                                                       self.width)
 
     def render_frames(self, n: int) -> np.ndarray:
         out = None

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..core.constants import NUM_XF_VALUES, TERMINATION_THRESHOLD
+from ..utils import profiling
 from .classify import (
     classify_field,
     composite_mids,
@@ -877,8 +878,9 @@ def ray_components(cam_dir00, cam_du, cam_dv, width: int, height: int,
     else:
         rx, ry = (torch.from_numpy(np.ascontiguousarray(l, np.float32))
                   for l in lattice)
-    rx, ry = rx.to(device), ry.to(device)
-    rz = _f32(d00[0], device)
+    with profiling.sync("sync.rays", device, 3):
+        rx, ry = rx.to(device), ry.to(device)
+        rz = _f32(d00[0], device)
     sec = torch.sqrt(ry[:, None] * ry[:, None] + rx[None, :] * rx[None, :]
                      + rz * rz) / torch.abs(rz)
     return rx, ry, sec.contiguous()
@@ -965,7 +967,9 @@ def _level_occupancy(grids: LevelGrids, z_planes: torch.Tensor):
     lvl_occ = []
     for li, L in enumerate(grids.levels):
         cw = float(1 << L)
-        occz = grids.masks[li].amax(dim=(1, 2)).cpu()
+        occz = grids.masks[li].amax(dim=(1, 2))
+        with profiling.sync("sync.level_occupancy", occz):
+            occz = occz.cpu()
         nz = occz.shape[0]
         qz = z_planes / cw - _f32(grids.origins[li][0], "cpu") - 0.5
         k0 = torch.floor(qz).to(torch.int64)
@@ -1191,10 +1195,12 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
 
     lut_np = np.asarray(fs.xf_lut, np.float32)
     dom_np = np.asarray(fs.xf_domain, np.float32)
-    domains = torch.from_numpy(dom_np[:cfg.num_channels]).to(dev)
+    with profiling.sync("sync.domains", dev):
+        domains = torch.from_numpy(dom_np[:cfg.num_channels]).to(dev)
     # per-slab TF activity (space skipping) on the host: tiny tables
     if cfg.space_skipping:
-        zranges = grids.zranges.cpu()
+        with profiling.sync("sync.zranges", grids.zranges):
+            zranges = grids.zranges.cpu()
         zi = torch.clamp((z_planes - _f32(np.floor(z_lo), "cpu")).to(
             torch.int64), 0, zranges.shape[0] - 1)
         act = torch.zeros(cfg.nslabs, dtype=torch.bool)
@@ -1204,7 +1210,9 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                 _f32(fs.xf_opacity_scale, "cpu"), zranges[zi])
     else:
         act = torch.ones(cfg.nslabs, dtype=torch.bool)
-    luts = [torch.from_numpy(l).to(dev) for l in frame_luts(fs, cfg)]
+    lut_host = frame_luts(fs, cfg)
+    with profiling.sync("sync.luts", dev, len(lut_host)):
+        luts = [torch.from_numpy(l).to(dev) for l in lut_host]
     tiles = (cfg.tile_rows, cfg.tile_cols)
 
     lvl_occ = _level_occupancy(grids, z_planes)
@@ -1224,20 +1232,23 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         scale = (z_s - oz) / _f32(d00[0], "cpu")
         return z_s, [o[sl] for o in lvl_occ_p], scale, act_p[sl]
 
+    @profiling.in_span("products")
     def mega_chunk_products(z_s, occ_s, scale):
         """Camera-only products of one chunk: per level the (C+1, S, ny,
         W) mids (z 2-tap lerp, then x 2-tap lerp to screen columns) and
         the TF-cull value rows."""
-        scale_d = scale.to(dev)
-        z_d = z_s.to(dev)
-        x_pos = ox.to(dev) + scale_d[:, None] * rx[None, :]  # (S, W)
+        with profiling.sync("sync.chunk_planes", dev, 3):
+            scale_d, z_d, ox_d = scale.to(dev), z_s.to(dev), ox.to(dev)
+        x_pos = ox_d + scale_d[:, None] * rx[None, :]  # (S, W)
         zvs_l, qx_l = [], []
         for li, L in enumerate(grids.levels):
             cw = float(1 << L)
             m = grids.masks[li]
             org = grids.origins[li]
             nz = m.shape[0]
-            qz = z_d / cw - _f32(org[0], dev) - 0.5
+            with profiling.sync("sync.level_origins", dev, 2):
+                org_z, org_x = _f32(org[0], dev), _f32(org[2], dev)
+            qz = z_d / cw - org_z - 0.5
             # occupancy gate folded into the z taps (the pipeline is
             # linear): levels with no cells near the chunk contribute 0
             gate = float(bool(occ_s[li].any()))
@@ -1248,7 +1259,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                                      frz, 0.0)
             i0z = torch.clamp(k0z, 0, nz - 1)
             i1z = torch.clamp(k0z + 1, 0, nz - 1)
-            qx = x_pos / cw - _f32(org[2], dev) - 0.5  # (S, W)
+            qx = x_pos / cw - org_x - 0.5  # (S, W)
             comps = [grids.vals[li][c] for c in range(cfg.num_channels)]
 
             def zres(vol):
@@ -1269,7 +1280,9 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
             for li, L in enumerate(grids.levels):
                 cw = float(1 << L)
                 nzl = grids.masks[li].shape[0]
-                qz = z_d / cw - _f32(grids.origins[li][0], dev) - 0.5
+                with profiling.sync("sync.cull_origins", dev):
+                    org_z = _f32(grids.origins[li][0], dev)
+                qz = z_d / cw - org_z - 0.5
                 k0 = torch.floor(qz).to(torch.int64)
                 vr = grids.vrange_zy[li]  # (C, nz, nyb, 2)
 
@@ -1292,8 +1305,9 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     def prepare(ci, keep_mids=True):
         z_s, occ_s, scale, _ = chunk_tables(ci)
         mids, orgs_y, cws_l, tf_cull = mega_chunk_products(z_s, occ_s, scale)
-        y_pos = (oy.to(dev) + scale.to(dev)[:, None] * ry[None, :]
-                 ).contiguous()  # (S, H)
+        with profiling.sync("sync.row_planes", dev, 2):
+            oy_d, scale_d = oy.to(dev), scale.to(dev)
+        y_pos = (oy_d + scale_d[:, None] * ry[None, :]).contiguous()  # (S, H)
         prep = prepare_chunk(mids, orgs_y, cws_l, y_pos, h, w, tiles=tiles,
                              adaptive_stride=cfg.adaptive_stride,
                              tf_cull=tf_cull)
@@ -1334,39 +1348,44 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         color = carry[:, :3].T.reshape(3, h, w).contiguous()
         alpha = carry[:, 3].reshape(h, w).contiguous()
     for ci in range(n_chunks):
-        # exact early exit: every pixel saturated
-        if not bool(alpha.min() < TERMINATION_THRESHOLD):
-            break
-        z_s, occ_s, scale, a_s = chunk_tables(ci)
-        live = a_s & (scale > 1e-6)
-        if not bool(live.any()):
-            continue
-        if lane is not None:
-            rgb, trans = lane.chunk(z_s, occ_s, scale, live)
-            # relative merge (no transmittance carry into the chunk)
-            color = color + (1.0 - alpha)[None] * rgb
-            alpha = 1.0 - (1.0 - alpha) * trans
-            continue
-        if ci < len(full):
-            prep = full[ci][0]
-        elif ci < n_cached:
-            prep = light[ci - len(full)][0]
-            prep = prep._replace(
-                mids=tuple(mega_chunk_products(z_s, occ_s, scale)[0]))
-        else:
-            prep = prepare(ci)[0]
-        live_d = live.to(dev)
-        act_f, act_all_f = combine_activity(
-            prep, live_d, luts, domains, adaptive_stride=cfg.adaptive_stride)
-        rgb, trans = run_chunk(
-            prep, sec, live_d, tables, dz, h, w, act_f=act_f,
-            act_all_f=act_all_f, prev_trans=(1.0 - alpha).contiguous(),
-            t_stop=None if stop_img is None else (scale, stop_img),
-            tiles=tiles, adaptive_stride=cfg.adaptive_stride,
-            plain=cfg.plain_sweep)
-        # absolute-transmittance carry: outputs arrive premultiplied
-        color = color + rgb
-        alpha = 1.0 - trans
+        with profiling.span("chunk"):
+            # exact early exit: every pixel saturated
+            with profiling.sync("sync.early_exit", alpha):
+                saturated = not bool(alpha.min() < TERMINATION_THRESHOLD)
+            if saturated:
+                break
+            z_s, occ_s, scale, a_s = chunk_tables(ci)
+            live = a_s & (scale > 1e-6)
+            if not bool(live.any()):
+                continue
+            if lane is not None:
+                rgb, trans = lane.chunk(z_s, occ_s, scale, live)
+                # relative merge (no transmittance carry into the chunk)
+                color = color + (1.0 - alpha)[None] * rgb
+                alpha = 1.0 - (1.0 - alpha) * trans
+                continue
+            if ci < len(full):
+                prep = full[ci][0]
+            elif ci < n_cached:
+                prep = light[ci - len(full)][0]
+                prep = prep._replace(
+                    mids=tuple(mega_chunk_products(z_s, occ_s, scale)[0]))
+            else:
+                prep = prepare(ci)[0]
+            with profiling.sync("sync.live", dev):
+                live_d = live.to(dev)
+            act_f, act_all_f = combine_activity(
+                prep, live_d, luts, domains,
+                adaptive_stride=cfg.adaptive_stride)
+            rgb, trans = run_chunk(
+                prep, sec, live_d, tables, dz, h, w, act_f=act_f,
+                act_all_f=act_all_f, prev_trans=(1.0 - alpha).contiguous(),
+                t_stop=None if stop_img is None else (scale, stop_img),
+                tiles=tiles, adaptive_stride=cfg.adaptive_stride,
+                plain=cfg.plain_sweep)
+            # absolute-transmittance carry: outputs arrive premultiplied
+            color = color + rgb
+            alpha = 1.0 - trans
 
     # saturated pixels collapse to premultiplied opaque (exabrick.cu:1694-97)
     if cfg.saturate_collapse:

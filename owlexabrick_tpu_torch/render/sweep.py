@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.constants import MAX_CHANNELS
+from ..utils import profiling
 from .xf import active_for_volume_sampling
 
 
@@ -80,6 +81,7 @@ class ChunkPrep(NamedTuple):
     y_pos: torch.Tensor
 
 
+@profiling.in_span("tiles")
 def prepare_chunk(mids: Sequence[torch.Tensor], origins_y, cell_widths,
                   y_pos: torch.Tensor, height: int, width: int, *,
                   tiles=(0, 0), adaptive_stride: bool = False,
@@ -157,6 +159,7 @@ def prepare_chunk(mids: Sequence[torch.Tensor], origins_y, cell_widths,
     )
 
 
+@profiling.in_span("activity")
 def combine_activity(prep: ChunkPrep, live: torch.Tensor, luts, domains,
                      *, adaptive_stride: bool = False):
     """Per-frame (TF/live-dependent) activity tables from the cached
@@ -168,7 +171,9 @@ def combine_activity(prep: ChunkPrep, live: torch.Tensor, luts, domains,
     _, s_, n_rt, n_ct = acts_l.shape
     dev = acts_l.device
     inf = float("inf")
-    cws = torch.tensor(prep.cell_widths, dtype=torch.float32, device=dev)
+    with profiling.sync("sync.cell_widths", dev):
+        cws = torch.tensor(prep.cell_widths, dtype=torch.float32,
+                           device=dev)
     act = acts_l.any(0) & live[:, None, None]
 
     if prep.vmin is not None:
@@ -263,7 +268,8 @@ def pack_luts(luts, domains, knots, device) -> ClassifyTables:
     n = int(luts[0].shape[0])
     if knots is not None:
         def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+            with profiling.sync("sync.knots", device):
+                return torch.as_tensor(np.asarray(a, np.float32)).to(device)
 
         return ClassifyTables(
             domains=dom.contiguous(), n_texels=n, compressed=True,
@@ -562,13 +568,11 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
                    int_a.ctypes.data_as(ctypes.c_void_p), len(int_a),
                    flt_a.ctypes.data_as(ctypes.c_void_p), len(flt_a),
                    kernels.stream_arg(dev))
-    sweep_chunk_cuda.launches += 1
+    profiling.count("launch.K1")
     return out[:3], out[3]
 
 
-sweep_chunk_cuda.launches = 0
-
-
+@profiling.in_span("sweep")
 def run_chunk(prep: ChunkPrep, sec, live, tables: ClassifyTables, dz,
               height: int, width: int, *, act_f, act_all_f,
               prev_trans=None, t_stop=None, tiles=(0, 0),

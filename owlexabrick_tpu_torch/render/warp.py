@@ -33,6 +33,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 _TR = 8
 _TC = 128
 
@@ -271,11 +273,8 @@ def warp_pass1_cuda(rgba_i, wj0, params, sw, height: int, bj: int):
                    ctypes.c_void_p(out.data_ptr()),
                    hp.ctypes.data_as(ctypes.c_void_p), c, iw, ih, height, bj,
                    kernels.stream_arg(dev))
-    warp_pass1_cuda.launches += 1
+    profiling.count("launch.K2a")
     return out
-
-
-warp_pass1_cuda.launches = 0
 
 
 def warp_pass2_cuda(v_img, wi0, params, sw, width: int, height: int,
@@ -305,11 +304,8 @@ def warp_pass2_cuda(v_img, wi0, params, sw, width: int, height: int,
                    ctypes.c_void_p(out.data_ptr()),
                    hp.ctypes.data_as(ctypes.c_void_p), c, iw, width, height,
                    bi, kernels.stream_arg(dev))
-    warp_pass2_cuda.launches += 1
+    profiling.count("launch.K2b")
     return out
-
-
-warp_pass2_cuda.launches = 0
 
 
 def warp_two_pass_reference(rgba_i, sw, width: int, height: int, bi: int,
@@ -330,10 +326,10 @@ def warp_two_pass_cuda(rgba_i, sw, width: int, height: int, bi: int,
     dev = rgba_i.device
     params = warp_params(sw, jx, jy, shift_i, shift_j)
     wj0, wi0 = window_starts(params, sw, width, height, bi, bj)
-    v_img = warp_pass1_cuda(rgba_i, wj0.to(dev), params, sw,
-                            height, bj)
-    return warp_pass2_cuda(v_img, wi0.to(dev), params, sw, width, height,
-                           bi)
+    with profiling.sync("sync.warp_windows", dev, 2):
+        wj0, wi0 = wj0.to(dev), wi0.to(dev)
+    v_img = warp_pass1_cuda(rgba_i, wj0, params, sw, height, bj)
+    return warp_pass2_cuda(v_img, wi0, params, sw, width, height, bi)
 
 
 def warp_two_pass(rgba_i, sw, width: int, height: int, bi: int, bj: int,

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from owlexabrick_tpu_torch.render import sweep as PS
+from owlexabrick_tpu_torch.utils.profiling import counts as COUNTS
 
 from torch_sweep_inputs import (
     H, K3_MIDS_CASES, TILES, W, deep_levels, k3_mids_inputs, k6_level_cases,
@@ -91,9 +92,9 @@ def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
         t_img[tie] = t_slab[rng.integers(0, s_, (H, W))][tie]
         kw["t_stop"] = (torch.from_numpy(t_slab).to(cuda),
                         torch.from_numpy(t_img).to(cuda))
-    n0 = PS.sweep_chunk_cuda.launches
+    n0 = COUNTS["launch.K1"]
     rgb_k, t_k = PS.sweep_chunk_cuda(*args, **kw)
-    assert PS.sweep_chunk_cuda.launches == n0 + 1
+    assert COUNTS["launch.K1"] == n0 + 1
     rgb_p, t_p = PS.sweep_chunk_reference(*args, **kw)
     torch.cuda.synchronize()
     k = torch.cat([rgb_k, t_k[None]])
@@ -155,7 +156,6 @@ def test_k1_dense_32_texels_matches_plain_version(cuda, stop, channels):
 def test_main_path_on_card_matches_cpu(cuda):
     """render_slabs_camera on the card (K6, K1) == on the CPU (plain)."""
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
-    from owlexabrick_tpu_torch.render import mids as PM
     from owlexabrick_tpu_torch.render.camera import Camera
     from owlexabrick_tpu_torch.render.frame import make_frame_state
     from owlexabrick_tpu_torch.render.slabs import (
@@ -169,11 +169,10 @@ def test_main_path_on_card_matches_cpu(cuda):
                          30.0, 24, 24)
     fs = make_frame_state(cam, 1, [[0.0, 1.0]], dt=1.0, opacity_scale=0.8)
     cfg = SlabConfig(nslabs=20, chunk=4, adaptive_stride=True)
-    n0 = (PS.sweep_chunk_cuda.launches,
-          PM.xresample_mids_levels_cuda.launches)
+    n0 = (COUNTS["launch.K1"], COUNTS["launch.K6"])
     got = render_slabs_camera(g_gpu, fs, cfg, cam, 24, 24).cpu()
-    assert PS.sweep_chunk_cuda.launches > n0[0]
-    assert PM.xresample_mids_levels_cuda.launches > n0[1]
+    assert COUNTS["launch.K1"] > n0[0]
+    assert COUNTS["launch.K6"] > n0[1]
     want = render_slabs_camera(g_cpu, fs, cfg, cam, 24, 24)
     assert float((got - want).abs().max()) < 1e-5
     plain = render_slabs_camera(
@@ -207,10 +206,10 @@ def test_k2_matches_plain_version(cuda, c, layout):
     if layout == "planar":
         img = img.T.contiguous().T
     kw = dict(jx=0.63, jy=0.29, shift_i=0.13, shift_j=-0.21)
-    n1, n2 = PW.warp_pass1_cuda.launches, PW.warp_pass2_cuda.launches
+    n1, n2 = COUNTS["launch.K2a"], COUNTS["launch.K2b"]
     got = PW.warp_two_pass(img, sw, w, h, bi, bj, **kw)
-    assert PW.warp_pass1_cuda.launches == n1 + 1
-    assert PW.warp_pass2_cuda.launches == n2 + 1
+    assert COUNTS["launch.K2a"] == n1 + 1
+    assert COUNTS["launch.K2b"] == n2 + 1
     want = PW.warp_two_pass(img, sw, w, h, bi, bj, plain=True, **kw)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (w * h, c)
@@ -247,9 +246,9 @@ def test_k4_matches_plain_version(cuda, shape):
     sw, swv, sec, live, lut = (torch.from_numpy(a).to(cuda)
                                for a in _xf_inputs(*shape, seed=3))
     dom, dz = np.asarray([0.1, 0.9], np.float32), np.float32(0.75)
-    n4 = PC.classify_field_cuda.launches
+    n4 = COUNTS["launch.K4"]
     got4 = PC.classify_field(sw, swv, sec, lut, dom, dz)
-    assert PC.classify_field_cuda.launches == n4 + 1
+    assert COUNTS["launch.K4"] == n4 + 1
     want4 = PC.classify_field(sw, swv, sec, lut, dom, dz, plain=True)
     torch.cuda.synchronize()
     for g, p in zip(got4, want4):
@@ -268,9 +267,9 @@ def test_k4_32_texels_matches_plain_version(cuda):
     sw, swv, sec, lut = (torch.from_numpy(a).to(cuda)
                          for a in (sw, swv, sec, _texels(lut, 32)))
     dom, dz = np.asarray([0.1, 0.9], np.float32), np.float32(0.75)
-    n4 = PC.classify_field_cuda.launches
+    n4 = COUNTS["launch.K4"]
     got = PC.classify_field(sw, swv, sec, lut, dom, dz)
-    assert PC.classify_field_cuda.launches == n4 + 1
+    assert COUNTS["launch.K4"] == n4 + 1
     want = PC.classify_field(sw, swv, sec, lut, dom, dz, plain=True)
     torch.cuda.synchronize()
     for g, p in zip(got, want):
@@ -294,9 +293,9 @@ def test_k3_mids_32_texels_bit_equal_plain(cuda, case):
     args = ([dev(m) for m in d["mids"]], [dev(tp) for tp in d["taps"]],
             dev(d["scale"]), dev(d["t_start"]), dev(d["t_stop"]),
             dev(d["sec"]), dev(d["lut"]), d["dom"], d["dz"])
-    n0 = PC.composite_mids_cuda.launches
+    n0 = COUNTS["launch.K3"]
     got = PC.composite_mids(*args)
-    assert PC.composite_mids_cuda.launches == n0 + 1
+    assert COUNTS["launch.K3"] == n0 + 1
     want = PC.composite_mids(*args, plain=True)
     torch.cuda.synchronize()
     for g, p in zip(got, want):
@@ -310,7 +309,6 @@ def test_k3_unclipped_lane_on_card_equals_plain(cuda):
     for bit and to the CPU frame within 1e-5; K3 launches once per
     chunk with a live slab."""
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
-    from owlexabrick_tpu_torch.render import classify as PC
     from owlexabrick_tpu_torch.render import slabs as P
     from owlexabrick_tpu_torch.render.camera import Camera
     from owlexabrick_tpu_torch.render.frame import make_frame_state
@@ -324,11 +322,11 @@ def test_k3_unclipped_lane_on_card_equals_plain(cuda):
     frames = []
     for device, plain in ((cuda, False), (cuda, True), ("cpu", False)):
         g = P.level_grids_from_cells(lower, level, scal[None], device=device)
-        n3 = PC.composite_mids_cuda.launches
+        n3 = COUNTS["launch.K3"]
         frames.append(P.render_slabs_camera(
             g, fs, dataclasses.replace(cfg, plain_sweep=plain), cam, 200,
             120).cpu())
-        k3 = PC.composite_mids_cuda.launches - n3
+        k3 = COUNTS["launch.K3"] - n3
         assert (k3 == 0) == (plain or device == "cpu")
     assert torch.equal(frames[0], frames[1])
     assert float((frames[0] - frames[2]).abs().max()) < 1e-5
@@ -353,9 +351,9 @@ def test_k3_mids_bit_equal_plain(cuda, case):
     taps = [dev(tp) for tp in d["taps"]]
     args = (mids, taps, dev(d["scale"]), dev(d["t_start"]), dev(d["t_stop"]),
             dev(d["sec"]), dev(d["lut"]), d["dom"], d["dz"])
-    n0 = PC.composite_mids_cuda.launches
+    n0 = COUNTS["launch.K3"]
     got = PC.composite_mids(*args)
-    assert PC.composite_mids_cuda.launches == n0 + 1
+    assert COUNTS["launch.K3"] == n0 + 1
     want = PC.composite_mids(*args, plain=True)
     torch.cuda.synchronize()
     for g, p in zip(got, want):
@@ -371,8 +369,6 @@ def test_k3_route_on_card_equals_plain(cuda, monkeypatch):
     with a live slab and K6 once per such chunk with an occupied
     level."""
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
-    from owlexabrick_tpu_torch.render import classify as PC
-    from owlexabrick_tpu_torch.render import mids as PM
     from owlexabrick_tpu_torch.render import slabs as P
     from owlexabrick_tpu_torch.render.camera import Camera
     from owlexabrick_tpu_torch.render.frame import make_frame_state
@@ -397,13 +393,11 @@ def test_k3_route_on_card_equals_plain(cuda, monkeypatch):
     frames = []
     for plain in (False, True):
         calls.clear()
-        n3, n6 = (PC.composite_mids_cuda.launches,
-                  PM.xresample_mids_levels_cuda.launches)
+        n3, n6 = COUNTS["launch.K3"], COUNTS["launch.K6"]
         frames.append(P.render_slabs_camera(
             g, fs, P.SlabConfig(nslabs=18, chunk=4, plain_sweep=plain), cam,
             200, 120, t_start=t0, t_stop=t1))
-        k3, k6 = (PC.composite_mids_cuda.launches - n3,
-                  PM.xresample_mids_levels_cuda.launches - n6)
+        k3, k6 = COUNTS["launch.K3"] - n3, COUNTS["launch.K6"] - n6
         want = (0, 0) if plain else (len(calls),
                                      sum(n > 0 for n in calls))
         assert (k3, k6) == want
@@ -419,7 +413,6 @@ def test_einsum_lane_on_card_matches_cpu(cuda, channels, grad):
     """The einsum lane (clip box interval, gradient shading, two
     channels) on the card (K3 or K4) == on the CPU (plain versions)."""
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
-    from owlexabrick_tpu_torch.render import classify as PC
     from owlexabrick_tpu_torch.render.camera import Camera
     from owlexabrick_tpu_torch.render.frame import make_frame_state
     from owlexabrick_tpu_torch.render.renderer import clip_interval
@@ -438,16 +431,15 @@ def test_einsum_lane_on_card_matches_cpu(cuda, channels, grad):
     cfg = SlabConfig(num_channels=channels, nslabs=20, chunk=4,
                      gradient_shading_dvr=grad)
     box = ([4.0, 0.0, 0.0], [16.0, 16.0, 12.8])
-    kernel = PC.classify_field_cuda if channels > 1 or grad else (
-        PC.composite_mids_cuda)
+    kernel = "launch.K4" if channels > 1 or grad else "launch.K3"
     frames = []
     for dev, g in (("cuda", g_gpu), ("cpu", g_cpu)):
         t0, t1 = clip_interval(2, cam, None, 24, 24, np.eye(3, 4), cam.pos,
                                *box, device=dev)
-        n0 = kernel.launches
+        n0 = COUNTS[kernel]
         frames.append(render_slabs_camera(g, fs, cfg, cam, 24, 24,
                                           t_start=t0, t_stop=t1).cpu())
-        assert (kernel.launches > n0) == (dev == "cuda")
+        assert (COUNTS[kernel] > n0) == (dev == "cuda")
     got, want = frames
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) < 1e-5
@@ -464,9 +456,9 @@ def test_k5_matches_plain_version(cuda):
     u[0, :128] = np.arange(128, dtype=np.float32)
     lut = rng.uniform(0.0, 1.0, (128, 4)).astype(np.float32)
     u_d, lut_d = torch.from_numpy(u).to(cuda), torch.from_numpy(lut).to(cuda)
-    n0 = PC.xf_classify_cuda.launches
+    n0 = COUNTS["launch.K5"]
     got = PC.xf_classify(u_d, lut_d)
-    assert PC.xf_classify_cuda.launches == n0 + 1
+    assert COUNTS["launch.K5"] == n0 + 1
     want = PC.xf_classify(u_d, lut_d, plain=True)
     torch.cuda.synchronize()
     for g, p in zip(got, want):
@@ -487,9 +479,9 @@ def test_k6_matches_plain_version(cuda):
     qx = np.sort(rng.uniform(-2.5, nx + 1.5, (s_, w)), 1).astype(np.float32)
     qx[:, 10:20] = np.arange(10, dtype=np.float32)
     qx = torch.from_numpy(qx).to(cuda)
-    n0 = PM.xresample_mids_levels_cuda.launches
+    n0 = COUNTS["launch.K6"]
     got = PM.xresample_mids(zvs, qx)
-    assert PM.xresample_mids_levels_cuda.launches == n0 + 1
+    assert COUNTS["launch.K6"] == n0 + 1
     want = PM.xresample_mids(zvs, qx, plain=True)
     torch.cuda.synchronize()
     assert got.shape == (c, s_, ny, w) and torch.isfinite(got).all()
@@ -507,9 +499,9 @@ def test_k6_levels_bit_equal_plain(cuda, case):
     zt = [torch.from_numpy(z).to(cuda) for z in zvs_l]
     qt = [torch.from_numpy(q).to(cuda) for q in qx_l]
     want = PM.xresample_mids_levels(zt, qt, plain=True)
-    n0 = PM.xresample_mids_levels_cuda.launches
+    n0 = COUNTS["launch.K6"]
     got = PM.xresample_mids_levels(zt, qt)
-    assert (PM.xresample_mids_levels_cuda.launches - n0
+    assert (COUNTS["launch.K6"] - n0
             == -(-len(zt) // PM.K6_MAX_LEVELS))
     torch.cuda.synchronize()
     assert len(got) == len(want)
@@ -521,8 +513,6 @@ def test_iso_on_card_matches_cpu(cuda):
     camera products' x stage in K6) and the colormap recolor (K5) on the
     card == on the CPU (plain versions)."""
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
-    from owlexabrick_tpu_torch.render import classify as PC
-    from owlexabrick_tpu_torch.render import mids as PM
     from owlexabrick_tpu_torch.render.camera import Camera
     from owlexabrick_tpu_torch.render.frame import make_frame_state
     from owlexabrick_tpu_torch.render.slabs import (
@@ -542,16 +532,15 @@ def test_iso_on_card_matches_cpu(cuda):
     fs = dataclasses.replace(fs, iso_enabled=np.asarray([True, False]),
                              iso_value=np.asarray([0.55, 0.0], np.float32))
     cfg = SlabConfig(num_channels=2, nslabs=20, chunk=4, colormap_channel=1)
-    counts = (PS.sweep_chunk_cuda, PC.xf_classify_cuda,
-              PM.xresample_mids_levels_cuda)
+    counts = ("launch.K1", "launch.K5", "launch.K6")
     frames = []
     for g in (g_gpu, g_cpu):
-        n0 = [k.launches for k in counts]
+        n0 = [COUNTS[k] for k in counts]
         rgba_i, t_iso, n, cos = render_slabs_iso_camera(
             g, fs, cfg, cam, 24, 24, return_normals=True)
         vol = render_slabs_camera(g, fs, cfg, cam, 24, 24, t_stop=t_iso)
         frames.append([x.cpu() for x in (rgba_i, t_iso, n, cos, vol)])
-        ran = [k.launches > c for k, c in zip(counts, n0)]
+        ran = [COUNTS[k] > c for k, c in zip(counts, n0)]
         assert ran == [g is g_gpu] * 3
     # the fields round alike on both devices but for the order of a few
     # sums: hit masks may flip at an exact tie, so compare where both hit
@@ -783,8 +772,6 @@ def test_cli_fast_on_card_matches_cpu(cuda, tmp_path, case):
     this size ``warp_windows`` admits no two-pass warp, so the tilted
     frame warps in torch, as the JAX package does)."""
     from owlexabrick_tpu_torch.builder.__main__ import main as build_main
-    from owlexabrick_tpu_torch.render.classify import composite_mids_cuda
-    from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
     from owlexabrick_tpu_torch.tools.artificial import generate
     from owlexabrick_tpu_torch.utils.png import read_png
     from owlexabrick_tpu_torch.viewer.offline import main
@@ -803,18 +790,16 @@ def test_cli_fast_on_card_matches_cpu(cuda, tmp_path, case):
     args += {"bands2": ["--bands", "2"],
              "clip": ["--clip-box", "2", "0", "0", "10", "6", "4"]
              }.get(case, [])
-    fns = {"aligned": [sweep_chunk_cuda], "bands2": [sweep_chunk_cuda],
-           "tilted": [sweep_chunk_cuda],
-           "clip": [composite_mids_cuda]}[case]
-    for fn in fns:
-        fn.launches = 0
+    fns = {"aligned": ["launch.K1"], "bands2": ["launch.K1"],
+           "tilted": ["launch.K1"], "clip": ["launch.K3"]}[case]
+    n0 = {fn: COUNTS[fn] for fn in fns}
     imgs = []
     for dev in ("cuda", "cpu"):
         out = str(tmp_path / f"{dev}.png")
         assert main(args + ["--device", dev, "-o", out]) == 0
         imgs.append(read_png(out).astype(int))
         if dev == "cuda":
-            assert all(fn.launches > 0 for fn in fns), case
+            assert all(COUNTS[fn] > n0[fn] for fn in fns), case
     assert np.abs(imgs[0] - imgs[1]).max() <= 1
     assert (imgs[0][..., :3] > 8).any()
 
@@ -841,8 +826,6 @@ def test_serve_frame_on_card_matches_cpu(cuda, tmp_path, query):
     from io import BytesIO
     from urllib.parse import urlencode
 
-    from owlexabrick_tpu_torch.render.classify import composite_mids_cuda
-    from owlexabrick_tpu_torch.render.sweep import sweep_chunk_cuda
     from owlexabrick_tpu_torch.utils.png import golden_gate, read_png
     from owlexabrick_tpu_torch.viewer import serve
 
@@ -858,8 +841,8 @@ def test_serve_frame_on_card_matches_cpu(cuda, tmp_path, query):
     server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
-    fn = composite_mids_cuda if query == "clip" else sweep_chunk_cuda
-    n0 = fn.launches
+    fn = "launch.K3" if query == "clip" else "launch.K1"
+    n0 = COUNTS[fn]
     try:
         url = (f"http://127.0.0.1:{server.server_address[1]}/frame?"
                + urlencode(q))
@@ -870,7 +853,7 @@ def test_serve_frame_on_card_matches_cpu(cuda, tmp_path, query):
         server.shutdown()
         server.server_close()
         t.join(timeout=30)
-    assert fn.launches > n0
+    assert COUNTS[fn] > n0
     cpu = serve.ViewerState(str(d / "one.exa"), 48, 32, device="cpu")
     want = read_png(BytesIO(cpu.render({k: [v] for k, v in q.items()})))
     ok, dmax, exact = golden_gate(got, want)

@@ -226,13 +226,10 @@ def test_write_png_bytes_match(shape):
         P_png.write_png(_io.BytesIO(), img.astype(np.float32))
 
 
-def test_text_and_profiling_utils(tmp_path):
+def test_text_and_profiling_utils():
     """``utils/text.py`` draws the JAX package's pixels (PIL here);
-    ``utils/profiling.py``: FrameStats' bench line, ``cost_heatmap``,
-    ``trace_to`` writing a torch.profiler Chrome trace, and
-    ``device_memory_stats`` empty without a card."""
-    import torch
-
+    ``utils/profiling.py``: FrameStats' bench line and
+    ``cost_heatmap``."""
     from owlexabrick_tpu.utils import profiling as J_prof
     from owlexabrick_tpu.utils import text as J_text
     from owlexabrick_tpu_torch.utils import profiling as P_prof
@@ -251,9 +248,4 @@ def test_text_and_profiling_utils(tmp_path):
     stats = P_prof.FrameStats(bench_frames=3)
     msgs = [stats.tick() for _ in range(4)]
     assert msgs[:3] == [None] * 3 and msgs[3].startswith(
-        "#exa: bench avg over 3 frames") and stats.fps > 0
-    with P_prof.trace_to(str(tmp_path / "trace")):
-        torch.ones(64).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-    if not torch.cuda.is_available():
-        assert P_prof.device_memory_stats() == {}
+        "#exa: bench avg over 3 frames")

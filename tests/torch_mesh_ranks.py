@@ -20,8 +20,7 @@ import torch.distributed as dist
 
 from owlexabrick_tpu_torch.core.types import Bricks
 from owlexabrick_tpu_torch.parallel import mesh as M
-from owlexabrick_tpu_torch.render import mids as PMIDS
-from owlexabrick_tpu_torch.render import sweep as PSW
+from owlexabrick_tpu_torch.utils import profiling
 
 
 def _px(case):
@@ -79,8 +78,8 @@ def one_process(case):
 
 
 def _counts():
-    return {"K1": PSW.sweep_chunk_cuda.launches,
-            "K6": PMIDS.xresample_mids_levels_cuda.launches}
+    return {"K1": profiling.counts["launch.K1"],
+            "K6": profiling.counts["launch.K6"]}
 
 
 def run(rank, world, port, in_path, out_dir):
