@@ -197,6 +197,8 @@ K3_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:178"
 K4_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:46"
 K5_REPLACES = "owlexabrick_tpu/render/pallas_xf.py:24"
 K6_REPLACES = "owlexabrick_tpu/render/pallas_mids.py:47"
+# K7 replaces no TPU kernel: XLA fused the jitted function it computes
+K7_REPLACES = "none (XLA fused owlexabrick_tpu/render/pallas_sweep.py:1489)"
 # K1, K2, K3, K4, K5 and K6 against their plain versions: max abs over
 # every output value
 TOL_K1 = 1e-5
@@ -217,7 +219,7 @@ PORT_KERNELS = {"sweep_kernel": "K1", "warp_pass1_kernel": "K2a",
                 "warp_pass2_kernel": "K2b",
                 "composite_mids_kernel": "K3",
                 "classify_field_kernel": "K4", "xf_classify_kernel": "K5",
-                "xresample_levels_kernel": "K6"}
+                "xresample_levels_kernel": "K6", "activity_kernel": "K7"}
 # the iso rows' iso value as a fraction of the scene's value maximum: the
 # iso golden's 0.55 on its [0, 1.05] TF domain
 ISO_FRAC = 0.524
@@ -271,6 +273,12 @@ SCALE_GATE_MB = 5120
 SCALE_CACHED, SCALE_TF, SCALE_ORBIT = 5, 8, 8
 SCALE_PLAIN_SIZE = (960, 540)
 SCALE_K1_CHUNK = 4
+# K7's timed chunks, seeded at the benchmark cells' shapes: (name, slabs,
+# levels, row tiles, column tiles); the TF drag's (exajet1024 at 1080p: 4
+# slabs over 4 levels, 216 x 128 tiles) and the zoom's (exajet256 through
+# shear-warp: 12 slabs over 4 levels on the 2944 x 1624 lattice's 232 x
+# 128 tiles)
+K7_SHAPES = (("tf_drag_chunk", 4, 4, 5, 15), ("zoom_chunk", 12, 4, 7, 23))
 
 
 def log(*a):
@@ -382,14 +390,15 @@ def chunk_inputs(grids, cam, fs, cfg, width, height, chunk_index,
     luts_np = slabs.scaled_luts(fs, 1)
     lut = torch.from_numpy(luts_np[0]).to(dev)
     domains = torch.from_numpy(np.asarray(fs.xf_domain, np.float32)).to(dev)
-    live = (scale > 1e-6).to(dev)
-    act_f, act_all_f = combine_activity(prep, live, [lut], domains,
-                                        adaptive_stride=cfg.adaptive_stride)
+    act_f, act_all_f, live = combine_activity(
+        prep, scale > 1e-6, [lut], domains,
+        adaptive_stride=cfg.adaptive_stride)
     knots = slabs.compress_pwl(luts_np)
     _, _, sec = slabs.ray_components(dir00, du, dv, width, height, dev,
                                      lattice=lattice)
     return dict(prep=prep, scale=scale, live=live, act_f=act_f,
-                act_all_f=act_all_f, sec=sec,
+                act_all_f=act_all_f, sec=sec, lut=lut, domains=domains,
+                stride=cfg.adaptive_stride,
                 dz=slabs.slab_spacing(grids, cfg.nslabs),
                 tables_knots=pack_luts([lut], domains, knots, dev),
                 tables_dense=pack_luts([lut], domains, None, dev))
@@ -612,6 +621,109 @@ def phase_k1(setups, tilted, width, height, device):
     return results
 
 
+def k7_check(name, prep, live, luts, domains, stride=True, timing=True):
+    """K7 vs its plain twin on one chunk's tables (``live``: the host's
+    (S,) bool mask): every output bit-equal.  Times K7 by CUDA events
+    around 50 eager launches (``ms``, which the host's issue sets), by
+    CUDA-graph replay (``graph_ms``, the device's time) and by the host's
+    clock per call (``host_us``), and the twin by events.  Returns a
+    result dict (fails loudly)."""
+    import torch
+
+    from owlexabrick_tpu_torch.render.sweep import (
+        combine_activity_cuda, combine_activity_reference)
+    from owlexabrick_tpu_torch.utils.profiling import counts
+
+    live_d = torch.as_tensor(live).to(prep.acts_l.device)
+    n0 = counts["launch.K7"]
+
+    def k7():
+        return combine_activity_cuda(prep, live, luts, domains,
+                                     adaptive_stride=stride)
+
+    def plain():
+        return combine_activity_reference(prep, live_d, luts, domains,
+                                          adaptive_stride=stride)
+
+    got = k7()
+    want = (*plain(), live_d.to(torch.float32))
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+    n_lv, s_, n_rt, n_ct = prep.acts_l.shape
+    res = dict(name=name, levels=n_lv, slabs=s_, tiles=[n_rt, n_ct],
+               channels=0 if prep.vmin is None else prep.vmin.shape[0],
+               bit_equal=equal, max_abs_err=0.0 if all(equal) else None,
+               strided_tiles=int((want[0] > 1).any(0).sum()),
+               k7_launches=counts["launch.K7"] - n0)
+    if timing:
+        res["ms"] = time_ms(k7, 50)
+        res["graph_ms"] = graph_ms(k7, 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            k7()
+        res["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        res["plain_ms"] = time_ms(plain, 20)
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes(prep.acts_l, prep.vmin, prep.vmax, domains,
+                   *luts[:res["channels"]], *got), 0)
+    log("k7 check:", json.dumps(res))
+    if not all(equal):
+        raise SystemExit(f"K7 differs from its plain version on {name}: "
+                         f"act_f, act_all_f, live_f equal {equal}")
+    return res
+
+
+def k7_chunk(slabs, levels, n_rt, n_ct, device, seed):
+    """Seeded K7 inputs at a chunk's shape: per tile a finest level
+    (coarser ones active at random above it, some tiles with none), TF-cull
+    bounds with empty ranges, the bench's Jet LUT (a ramp from 0, opacity
+    scale 0.7) on the domain [0, 1], and a live mask with one dead slab.
+    Returns (prep, live on the host, luts, domains)."""
+    import torch
+
+    from owlexabrick_tpu_torch.render.sweep import ChunkPrep
+    from owlexabrick_tpu_torch.viewer.colormaps import colormap_colors
+
+    rng = np.random.default_rng(seed)
+    finest = rng.integers(0, levels + 1, (n_rt, n_ct))
+    lv = np.arange(levels)[:, None, None, None]
+    acts = (lv >= finest[None, None]) & (
+        rng.uniform(size=(levels, slabs, n_rt, n_ct)) < 0.8)
+    vmin = rng.uniform(0.0, 1.0, (1, slabs, n_rt)).astype(np.float32)
+    vmax = (vmin + rng.uniform(0.0, 0.3, vmin.shape)).astype(np.float32)
+    vmin[:, :, 0], vmax[:, :, 0] = np.inf, -np.inf
+    lut = np.concatenate([colormap_colors("Jet", 128),
+                          0.7 * np.linspace(0.0, 1.0, 128)[:, None]], 1)
+    lut = torch.from_numpy(lut.astype(np.float32)).to(device)
+    live = np.ones(slabs, bool)
+    live[slabs // 2] = False
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    prep = ChunkPrep(mids=(), origins_y=(0.0,) * levels,
+                     cell_widths=tuple(float(1 << i) for i in range(levels)),
+                     acts_l=dev(acts), vmin=dev(vmin), vmax=dev(vmax),
+                     y_pos=torch.zeros((slabs, 1), device=device))
+    return prep, live, [lut], torch.tensor([[0.0, 1.0]], device=device)
+
+
+def phase_k7(device):
+    """K7 against its plain twin, seeded at K7_SHAPES (timed) and at the
+    card tests' extremes (256 slabs, 9 levels, no TF cull, no stride)."""
+    results = []
+    for i, (name, slabs, levels, n_rt, n_ct) in enumerate(K7_SHAPES):
+        results.append(k7_check(name, *k7_chunk(slabs, levels, n_rt, n_ct,
+                                                 device, 700 + i)))
+    prep, live, luts, dom = k7_chunk(256, 9, 5, 15, device, 710)
+    results.append(k7_check("s256_l9", prep, live, luts, dom, timing=False))
+    results.append(k7_check("s256_l9_no_cull_unit",
+                            prep._replace(vmin=None, vmax=None), live, luts,
+                            dom, stride=False, timing=False))
+    return results
+
+
 def k1_registers(build_log):
     """Registers and spill bytes of each K1 instantiation (channel count)
     from nvcc's ``-Xptxas -v`` report."""
@@ -775,7 +887,7 @@ def render_row(row, width, height, cfg=None, cache=None):
                                camera_cache=cache)
 
 
-KERNEL_IDS = ("K1", "K2a", "K2b", "K3", "K4", "K5", "K6")
+KERNEL_IDS = ("K1", "K2a", "K2b", "K3", "K4", "K5", "K6", "K7")
 # the launch counters at the last reset_launch_counts()
 _launches0 = {}
 
@@ -2698,8 +2810,8 @@ def deep_chunk(n_levels, device, seed, height=1080, width=1920, slabs=12):
                              0.1 * opac[:, None]], 1).astype(np.float32)
     lut = torch.from_numpy(lut_np).to(device)
     domains = torch.tensor([[0.0, 1.0]], device=device)
-    live = torch.ones(slabs, dtype=torch.bool, device=device)
-    act_f, act_all_f = combine_activity(prep, live, [lut], domains)
+    act_f, act_all_f, live = combine_activity(
+        prep, torch.ones(slabs, dtype=torch.bool), [lut], domains)
     sec = 1.0 + 0.2 * torch.rand((height, width), generator=g,
                                  device=device)
     pt = 0.2 + 0.8 * torch.rand((height, width), generator=g, device=device)
@@ -3200,8 +3312,10 @@ def phase_scale(device, card, size=(1920, 1080)):
     twin (timed).  One cached and one uncached frame run under
     torch.profiler.  K6 against its plain version on one uncached 1080p
     frame's calls: the largest level block, the largest chunk, the whole
-    frame.  Returns (the launches of steps a-e, [K1's chunk result],
-    K6's results)."""
+    frame.  K7 launches once per chunk swept in every step, and matches
+    its twin bit for bit on chunk SCALE_K1_CHUNK (timed).  Returns (the
+    launches of steps a-e, [K1's chunk result], K6's results, [K7's chunk
+    result])."""
     import dataclasses
 
     import torch
@@ -3264,7 +3378,12 @@ def phase_scale(device, card, size=(1920, 1080)):
                    spread_ms=round(float(max(times) - min(times)), 3),
                    peak_mb=round(torch.cuda.max_memory_allocated() / 1e6, 1),
                    k1_launches=got["K1"] - n0["K1"],
-                   k6_launches=got["K6"] - n0["K6"], **extra)
+                   k6_launches=got["K6"] - n0["K6"],
+                   k7_launches=got["K7"] - n0["K7"], **extra)
+        if rec["k7_launches"] != rec["k1_launches"]:
+            raise SystemExit(f"scale: {name} launched K7 "
+                             f"{rec['k7_launches']} times for "
+                             f"{rec['k1_launches']} chunks swept")
         log("scale:", json.dumps(rec))
         return rec
 
@@ -3401,6 +3520,8 @@ def phase_scale(device, card, size=(1920, 1080)):
         [tuple(m.shape) for m in ci["prep"].mids])
     k1 = k1_check("scale1024_real_chunk", ci, ci["prep"], None,
                   ci["tables_knots"], w, h)
+    k7 = k7_check("scale1024_real_chunk", ci["prep"], ci["scale"] > 1e-6,
+                  [ci["lut"]], ci["domains"], stride=ci["stride"])
     del ci
     # K6 at this path's shapes: one uncached 1080p frame's calls
     calls = [c[:2] for c in capture_all_calls(
@@ -3414,7 +3535,7 @@ def phase_scale(device, card, size=(1920, 1080)):
     del calls, chunk, grids
     torch.cuda.empty_cache()
     log(f"scale phase {time.perf_counter() - t_phase:.1f} s on {card}")
-    return counts, [k1], k6
+    return counts, [k1], k6, [k7]
 
 
 def profile_once(fn, trace_path=None):
@@ -3541,6 +3662,7 @@ def main() -> int:
             f"{tilted[f'{name}_tilted'][4]['windows']}")
 
     k1 = phase_k1(setups, tilted, width, height, dev)
+    k7 = phase_k7(dev)
     k2 = phase_k2(tilted, width, height, dev)
     phase_goldens(dev)
 
@@ -3642,9 +3764,10 @@ def main() -> int:
     meshed, _ = phase_mesh(setups, dev, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # the reference-scale scene (its launches counted inside the phase)
-    scaled, sc_k1, sc_k6 = phase_scale(dev, card)
+    scaled, sc_k1, sc_k6, sc_k7 = phase_scale(dev, card)
     k1 += sc_k1
     k6 += sc_k6
+    k7 += sc_k7
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     if "--profile" in sys.argv[1:]:
         phase_profile(rows, width, height)
@@ -3661,6 +3784,7 @@ def main() -> int:
     k3_real = next(r for r in k3 if r["name"] == "headline_clip_real_chunk")
     k5_real = next(r for r in k5 if r["name"].endswith("_hits"))
     k6_chunk = next(r for r in k6 if r["name"] == "headline_chunk")
+    k7_tf = next(r for r in k7 if r["name"] == "tf_drag_chunk")
     src_warp = "owlexabrick_tpu_torch/csrc/warp.cu"
     src_xf = "owlexabrick_tpu_torch/csrc/xf.cu"
     launches = {k: aligned[k] + tilt[k] + einsum[k] + iso[k] + surf[k]
@@ -3698,6 +3822,9 @@ def main() -> int:
         entry("K6 x-tent resample of a chunk's level mids",
               "owlexabrick_tpu_torch/csrc/mids.cu", K6_REPLACES, "K6",
               max(r["max_abs_err"] for r in k6), k6_chunk),
+        entry("K7 activity and stride tables of a chunk",
+              "owlexabrick_tpu_torch/csrc/sweep.cu", K7_REPLACES, "K7",
+              max(r["max_abs_err"] for r in k7), k7_tf),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -676,6 +676,265 @@ extern "C" int owx_sweep_chunk(const uint64_t* ptrs, int n_ptrs,
   return (int)cudaGetLastError();
 }
 
+// K7 for Hopper: the per-frame activity and stride tables of one chunk.
+//
+// Replaces no TPU kernel: the JAX package's pallas_sweep.combine_activity
+// (:1489-1579) is jitted, and XLA fuses its small ops.  Eager PyTorch
+// issued them one by one, ~145 launches and two host waits a chunk (the
+// slabs' live mask and the cell widths copied to the card), for tables of a
+// few hundred entries; K7 is that function in one launch, with those host
+// inputs passed by value in its parameters.  Its plain-torch twin is
+// render/sweep.py::combine_activity_reference.
+//
+// What bounds it: launch latency.  It reads L*S*R*Ct bytes of geometric
+// activity, 2*C*S*R floats of TF-cull bounds and C*N*4 floats of LUTs, and
+// writes S*R*Ct + R*Ct + S floats: kilobytes at the main path's chunks.
+//
+// The design: a tile's tables depend only on its own column of slabs, so
+// one thread takes one (row tile, column tile).  Each block first marks,
+// per channel, which LUT entries have a positive alpha, each alpha through
+// xf.py::lookup_xf's operations in their order, and keeps prefix counts of
+// them in shared memory, so the TF test of a (slab, row tile) reads two
+// counts.  Each thread then ORs the levels, masks dead slabs, applies the
+// TF cull (active_for_volume_sampling's clamps and truncation), finds the
+// finest active cell width, and forms the greedy 8/4/2 stride groups with
+// the twin's representative (the first minimum of its score), its padding
+// of a ragged last group and its consumed slabs.  Block 0 also writes the
+// live mask as floats, the form K1 reads.
+//
+// Every comparison and rounding is the twin's on the card (-fmad=false;
+// PyTorch divides a CUDA tensor by a host scalar as a product with the
+// scalar's reciprocal, so those two divisions are written so here), and
+// the tables are booleans and small counts: the outputs are bit-equal.
+
+namespace {
+
+constexpr int kMaxSlabs = 256;   // kernels.MAX_SLABS
+constexpr int kMaxTexels = 128;  // kernels.MAX_TEXELS
+constexpr int kActThreads = 128;
+
+struct ActParams {
+  const unsigned char* acts_l;  // (L, S, R, Ct) bool
+  const float* vmin;            // (C, S, R), or null: no TF cull
+  const float* vmax;            // (C, S, R)
+  const float* dom;             // (>= C, 2)
+  const float* lut[kMaxCh];     // per channel (N, 4), alpha prescaled
+  float* act;                   // out (S, R, Ct)
+  float* act_all;               // out (R, Ct)
+  float* live_f;                // out (S,)
+  float cw[kMaxLevels];
+  unsigned live[kMaxSlabs / 32];
+  int n_levels, n_ch, S, n_rt, n_ct, n_texels, stride;
+};
+
+__device__ __forceinline__ bool bit(const unsigned* w, int i) {
+  return (w[i >> 5] >> (i & 31)) & 1u;
+}
+
+// torch.clamp on floats: NaN passes through
+__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// The alpha of LUT entry j as active_for_volume_sampling computes it:
+// lookup_xf at the entry's cell value, opacity scale 1
+__device__ float entry_alpha(const float* lut, int n, float lo, float hi,
+                             int j) {
+  const float nm1 = (float)(n - 1), inv = 1.f / nm1;
+  const float span = hi - lo;
+  const float value = (float)j * inv * span + lo;
+  float s = nm1 * (value - lo) / (span + 1e-20f);
+  s = clamp_nan(s + 0.5f, 0.f, nm1) * inv;
+  const float u = s * (float)n - 0.5f;
+  const float f0 = floorf(u);
+  const float frac = u - f0;
+  const long long k = (long long)f0;
+  const int i0 = (int)min(max(k, 0LL), (long long)(n - 1));
+  const int i1 = (int)min(max(k + 1, 0LL), (long long)(n - 1));
+  return lut[4 * i0 + 3] * (1.f - frac) + lut[4 * i1 + 3] * frac;
+}
+
+// The TF cull of slab s, row tile rt: some channel's value range holds a
+// LUT entry of positive alpha.  cnt[c][k]: positive alphas below entry k.
+__device__ bool tf_active(const ActParams& p, const int* cnt, int s, int rt) {
+  const int n = p.n_texels;
+  const float nm1 = (float)(n - 1), big = (float)(n + 1);
+  for (int c = 0; c < p.n_ch; ++c) {
+    const size_t k = ((size_t)c * p.S + s) * p.n_rt + rt;
+    const float vlo = p.vmin[k], vhi = p.vmax[k];
+    const float lo = p.dom[2 * c], hi = p.dom[2 * c + 1];
+    const float span = (hi - lo) + 1e-20f;
+    const int ilo = min(max((int)clamp_nan((vlo - lo) / span * nm1, -big,
+                                           big), 0), n - 1);
+    const int ihi = min(max((int)clamp_nan((vhi - lo) / span * nm1, -big,
+                                           big) + 1, 0), n - 1);
+    const int* cc = cnt + c * (kMaxTexels + 1);
+    const bool inside = !(vlo > hi || vhi < lo);
+    if (inside && ilo <= ihi && cc[ihi + 1] > cc[ilo] && vhi >= vlo)
+      return true;
+  }
+  return false;
+}
+
+__global__ void __launch_bounds__(kActThreads)
+activity_kernel(const __grid_constant__ ActParams p) {
+  __shared__ int cnt[kMaxCh * (kMaxTexels + 1)];
+  __shared__ unsigned char pos[kMaxCh * kMaxTexels];
+  const int n = p.n_texels;
+  for (int e = threadIdx.x; e < p.n_ch * n; e += blockDim.x) {
+    const int c = e / n;
+    pos[e] = entry_alpha(p.lut[c], n, p.dom[2 * c], p.dom[2 * c + 1],
+                         e % n) > 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < p.n_ch) {
+    int* cc = cnt + threadIdx.x * (kMaxTexels + 1);
+    int run = 0;
+    for (int j = 0; j < n; ++j) {
+      cc[j] = run;
+      run += pos[threadIdx.x * n + j];
+    }
+    cc[n] = run;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0)
+    for (int s = threadIdx.x; s < p.S; s += blockDim.x)
+      p.live_f[s] = bit(p.live, s) ? 1.f : 0.f;
+  const int plane = p.n_rt * p.n_ct;
+  const int tile = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tile >= plane) return;
+  const int rt = tile / p.n_ct;
+
+  float cw_min = p.cw[0];
+  for (int l = 1; l < p.n_levels; ++l) cw_min = fminf(cw_min, p.cw[l]);
+  // per slab: active, the stride limit (finest active cell width over
+  // the finest of all; inf where inactive) and the step weight
+  unsigned act[kMaxSlabs / 32] = {};
+  float lim[kMaxSlabs];
+  unsigned char wt[kMaxSlabs];
+  for (int s = 0; s < p.S; ++s) {
+    bool a = false;
+    float cwa = INFINITY;
+    for (int l = 0; l < p.n_levels; ++l) {
+      if (p.acts_l[((size_t)l * p.S + s) * plane + tile]) {
+        a = true;
+        cwa = fminf(cwa, p.cw[l]);
+      }
+    }
+    a = a && bit(p.live, s);
+    if (a && p.vmin) a = tf_active(p, cnt, s, rt);
+    if (a) act[s >> 5] |= 1u << (s & 31);
+    lim[s] = a ? cwa / cw_min : INFINITY;
+    wt[s] = a;
+  }
+
+  if (p.stride && p.S > 1) {
+    // groups of 8, then 4, then 2 consecutive slabs; a ragged last group
+    // is padded with inactive, unlimited, unconsumed slots
+    unsigned used[kMaxSlabs / 32] = {};
+    for (int c = 8; c >= 2; c >>= 1) {
+      if (c > p.S) continue;
+      for (int g0 = 0; g0 < p.S; g0 += c) {
+        const int g1 = min(g0 + c, p.S);
+        float lmin = INFINITY;
+        int na = 0, first = c, last = -1;
+        bool taken = false;
+        for (int s = g0; s < g1; ++s) {
+          lmin = fminf(lmin, lim[s]);
+          taken = taken || bit(used, s);
+          if (bit(act, s)) {
+            ++na;
+            first = min(first, s - g0);
+            last = s - g0;
+          }
+        }
+        if (!(lmin >= (float)c && na >= 2 && !taken)) continue;
+        // the representative: the active slot nearest the active span's
+        // middle, the first of equals
+        const float mid = 0.5f * ((float)first + (float)last);
+        int rep = 0;
+        float best = INFINITY;
+        for (int j = 0; j < c; ++j) {
+          const bool aj = g0 + j < p.S && bit(act, g0 + j);
+          const float score = fabsf((float)j - mid) + (aj ? 0.f : 1e9f);
+          if (score < best) {
+            best = score;
+            rep = j;
+          }
+        }
+        for (int s = g0; s < g1; ++s) {
+          if (bit(act, s)) wt[s] = s - g0 == rep ? na : 0;
+          used[s >> 5] |= 1u << (s & 31);
+        }
+      }
+    }
+  }
+
+  // "every slab active at unit weight"
+  bool all = true;
+  for (int s = 0; s < p.S; ++s) {
+    const float w = (float)wt[s];
+    p.act[(size_t)s * plane + tile] = w;
+    all = all && bit(act, s) && fabsf(w - 1.f) < 0.5f;
+  }
+  p.act_all[tile] = all ? 1.f : 0.f;
+}
+
+}  // namespace
+
+// Plain C entry point of K7 (bound with ctypes).  Argument packs:
+//   ptrs: acts_l, vmin, vmax, domains (the last three 0 without the TF
+//         cull), act, act_all, live_f, then one LUT pointer per channel
+//   ints: n_levels, n_ch (0 without the TF cull), S, R, Ct, n_texels,
+//         TF cull, adaptive stride, then each slab's live bit (S ints)
+//   flts: cw per level
+// Returns the launch's cudaError_t (0 = launched).
+extern "C" int owx_activity_chunk(const uint64_t* ptrs, int n_ptrs,
+                                  const int* ints, int n_ints,
+                                  const float* flts, int n_flts,
+                                  void* stream) {
+  if (n_ints < 8) return (int)cudaErrorInvalidValue;
+  ActParams p = {};
+  p.n_levels = ints[0];
+  p.n_ch = ints[1];
+  p.S = ints[2];
+  p.n_rt = ints[3];
+  p.n_ct = ints[4];
+  p.n_texels = ints[5];
+  const int has_tf = ints[6];
+  p.stride = ints[7];
+  const int L = p.n_levels, C = p.n_ch;
+  if (L < 1 || L > kMaxLevels || p.S < 1 || p.S > kMaxSlabs ||
+      p.n_rt < 1 || p.n_ct < 1 || n_ints != 8 + p.S || n_flts != L ||
+      n_ptrs != 7 + C || !ptrs || !flts ||
+      (has_tf ? C < 1 || C > kMaxCh || p.n_texels < 2 ||
+                    p.n_texels > kMaxTexels
+              : C != 0))
+    return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < p.S; ++s)
+    if (ints[8 + s]) p.live[s >> 5] |= 1u << (s & 31);
+  for (int l = 0; l < L; ++l) p.cw[l] = flts[l];
+  p.acts_l = (const unsigned char*)ptrs[0];
+  p.vmin = (const float*)ptrs[1];
+  p.vmax = (const float*)ptrs[2];
+  p.dom = (const float*)ptrs[3];
+  p.act = (float*)ptrs[4];
+  p.act_all = (float*)ptrs[5];
+  p.live_f = (float*)ptrs[6];
+  for (int c = 0; c < C; ++c) {
+    p.lut[c] = (const float*)ptrs[7 + c];
+    if (!p.lut[c]) return (int)cudaErrorInvalidValue;
+  }
+  if (!(p.acts_l && p.act && p.act_all && p.live_f) ||
+      (has_tf && !(p.vmin && p.vmax && p.dom)))
+    return (int)cudaErrorInvalidValue;
+  if (!has_tf) p.vmin = p.vmax = nullptr;
+  const int tiles = p.n_rt * p.n_ct;
+  activity_kernel<<<(tiles + kActThreads - 1) / kActThreads, kActThreads, 0,
+                    (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* owx_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

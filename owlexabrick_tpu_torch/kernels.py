@@ -20,14 +20,14 @@ import tempfile
 
 import torch
 
-# must match csrc/sweep.cu, csrc/warp.cu and csrc/xf.cu (K1 takes
-# core.constants.MAX_CHANNELS scalar channels).  K1's and K3's level
+# must match csrc/sweep.cu, csrc/warp.cu and csrc/xf.cu (K1 and K7 take
+# core.constants.MAX_CHANNELS scalar channels).  K1's, K3's and K7's level
 # tables hold every level a scene can have: cell widths are 1 << level
 # over int32 corners, so at most 31 levels (0..30).
 MAX_LEVELS = 32
 MAX_COLOR_COMPONENTS = 4  # K2a / K2b: rgba or rgb
 MAX_TEXELS = 128
-MAX_SLABS = 256
+MAX_SLABS = 256  # K3, K7: the slabs of one chunk
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -126,6 +126,8 @@ def load():
         lib.owx_sweep_chunk.restype = ci
         lib.owx_sweep_shape.argtypes = [vp, ci, ci, vp]
         lib.owx_sweep_shape.restype = ci
+        lib.owx_activity_chunk.argtypes = [vp, ci, vp, ci, vp, ci, vp]
+        lib.owx_activity_chunk.restype = ci
         ll = ctypes.c_longlong
         lib.owx_warp_pass1.argtypes = [vp, ll, ll, vp, vp, vp, ci, ci, ci,
                                        ci, ci, vp]
@@ -177,8 +179,12 @@ def check_tensor(name, t, dev, shape, dtype=torch.float32):
 
 
 def stream_arg(dev) -> ctypes.c_void_p:
-    """The current CUDA stream of ``dev``, as a launch argument."""
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    """The current CUDA stream of ``dev``, as a launch argument (its raw
+    handle, read without making a ``torch.cuda.Stream``: a few
+    microseconds less a launch)."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def launch(entry: str, name: str, *args):

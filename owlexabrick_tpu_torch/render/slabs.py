@@ -1372,13 +1372,13 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                     mids=tuple(mega_chunk_products(z_s, occ_s, scale)[0]))
             else:
                 prep = prepare(ci)[0]
-            with profiling.sync("sync.live", dev):
-                live_d = live.to(dev)
-            act_f, act_all_f = combine_activity(
-                prep, live_d, luts, domains,
-                adaptive_stride=cfg.adaptive_stride)
+            # K7 takes the host's live mask by value and returns it on
+            # the card for K1
+            act_f, act_all_f, live_f = combine_activity(
+                prep, live, luts, domains,
+                adaptive_stride=cfg.adaptive_stride, plain=cfg.plain_sweep)
             rgb, trans = run_chunk(
-                prep, sec, live_d, tables, dz, h, w, act_f=act_f,
+                prep, sec, live_f, tables, dz, h, w, act_f=act_f,
                 act_all_f=act_all_f, prev_trans=(1.0 - alpha).contiguous(),
                 t_stop=None if stop_img is None else (scale, stop_img),
                 tiles=tiles, adaptive_stride=cfg.adaptive_stride,

@@ -9,7 +9,9 @@ a static camera pose can cache everything camera-dependent:
   column-tile) activity tables from mask support, and the TF-cull value
   bounds per (slab, row tile).
 * ``combine_activity`` (per frame, tiny): TF/live masks and the
-  adaptive-stride step weights.
+  adaptive-stride step weights.  For CUDA tensors it launches K7 in
+  ``csrc/sweep.cu``, one launch a chunk; for CPU tensors it runs
+  ``combine_activity_reference``, the same function in plain torch.
 * ``run_chunk``: the sweep itself.  For CUDA tensors it launches K1, the
   hand-written Hopper kernel in ``csrc/sweep.cu``; for CPU tensors it
   runs ``sweep_chunk_reference``, the same function in plain torch.
@@ -159,14 +161,14 @@ def prepare_chunk(mids: Sequence[torch.Tensor], origins_y, cell_widths,
     )
 
 
-@profiling.in_span("activity")
-def combine_activity(prep: ChunkPrep, live: torch.Tensor, luts, domains,
-                     *, adaptive_stride: bool = False):
-    """Per-frame (TF/live-dependent) activity tables from the cached
-    geometric ones (``pallas_sweep.combine_activity:1489-1579``): OR the
-    per-level activities, mask dead slabs, apply the TF-aware lateral
-    cull, then form the adaptive-stride step weights.  Returns
-    (act_f (S, R, Ct), act_all_f (R, Ct)) fp32."""
+def combine_activity_reference(prep: ChunkPrep, live: torch.Tensor, luts,
+                               domains, *, adaptive_stride: bool = False):
+    """Plain-torch K7: per-frame (TF/live-dependent) activity tables from
+    the cached geometric ones (``pallas_sweep.combine_activity:1489-1579``):
+    OR the per-level activities, mask dead slabs, apply the TF-aware
+    lateral cull, then form the adaptive-stride step weights.  ``live``:
+    (S,) bool on the tables' device.  Returns (act_f (S, R, Ct), act_all_f
+    (R, Ct)) fp32."""
     acts_l = prep.acts_l
     _, s_, n_rt, n_ct = acts_l.shape
     dev = acts_l.device
@@ -237,6 +239,103 @@ def combine_activity(prep: ChunkPrep, live: torch.Tensor, luts, domains,
     act_all_f = (act.all(0) & (torch.abs(act_f - 1.0) < 0.5).all(0)).to(
         torch.float32)
     return act_f.contiguous(), act_all_f.contiguous()
+
+
+def _k7_packs(prep: ChunkPrep, live, n_texels: int,
+              adaptive_stride: bool):
+    """K7's int and float argument packs (``csrc/sweep.cu::
+    owx_activity_chunk``), which travel by value in the launch: ints = L,
+    C (0 without the TF cull), S, R, Ct, LUT texels (0 without the cull),
+    the TF cull, the adaptive stride, then each slab's live bit; floats =
+    the cell width of each level.  ``live``: (S,) bool on the host."""
+    n_lv, s_, n_rt, n_ct = prep.acts_l.shape
+    n_ch = 0 if prep.vmin is None else prep.vmin.shape[0]
+    bits = (live if isinstance(live, torch.Tensor)
+            else np.asarray(live)).reshape(-1).tolist()
+    if len(bits) != s_:
+        raise ValueError(f"live has {len(bits)} slabs, the tables {s_}")
+    return (np.array([n_lv, n_ch, s_, n_rt, n_ct, n_texels if n_ch else 0,
+                      n_ch > 0, adaptive_stride, *bits], np.int32),
+            np.array(prep.cell_widths, np.float32))
+
+
+def combine_activity_cuda(prep: ChunkPrep, live, luts, domains, *,
+                          adaptive_stride: bool = False):
+    """Launch K7 (``csrc/sweep.cu``) on the current stream: the tables of
+    ``combine_activity_reference`` and the live mask as (S,) fp32 on the
+    card, the form K1 reads.  ``live`` stays on the host (a tensor, array
+    or sequence): its bits and the cell widths travel in the launch's
+    arguments, so nothing is copied to the card.  Raises on any input the
+    kernel does not take; never falls back."""
+    from .. import kernels
+
+    acts_l = prep.acts_l
+    dev = acts_l.device
+    if dev.type != "cuda":
+        raise ValueError(f"combine_activity_cuda needs CUDA tables, got "
+                         f"{dev}")
+    if isinstance(live, torch.Tensor) and live.device.type != "cpu":
+        raise ValueError(f"K7 takes live by value: pass it on the host, "
+                         f"not on {live.device}")
+    n_lv, s_, n_rt, n_ct = acts_l.shape
+    kernels.check_levels("K7", n_lv)
+    if not 1 <= s_ <= kernels.MAX_SLABS:
+        raise ValueError(f"{s_} slabs; K7 takes 1..{kernels.MAX_SLABS}")
+    kernels.check_tensor("acts_l", acts_l, dev, tuple(acts_l.shape),
+                         torch.bool)
+    cull, n_tex = [None, None, None], 0  # vmin, vmax, domains; then LUTs
+    if prep.vmin is not None:
+        n_ch = prep.vmin.shape[0]
+        if not 1 <= n_ch <= MAX_CHANNELS or len(luts) < n_ch:
+            raise ValueError(f"{n_ch} channels with {len(luts)} LUTs; K7 "
+                             f"takes 1..{MAX_CHANNELS}")
+        n_tex = luts[0].shape[0]
+        if not 2 <= n_tex <= kernels.MAX_TEXELS:
+            raise ValueError(f"{n_tex} LUT texels; K7 takes "
+                             f"2..{kernels.MAX_TEXELS}")
+        kernels.check_tensor("vmin", prep.vmin, dev, (n_ch, s_, n_rt))
+        kernels.check_tensor("vmax", prep.vmax, dev, (n_ch, s_, n_rt))
+        if not isinstance(domains, torch.Tensor) or len(domains) < n_ch:
+            raise ValueError(f"domains: need a ({n_ch}, 2) tensor")
+        kernels.check_tensor("domains", domains, dev, (len(domains), 2))
+        for c in range(n_ch):
+            kernels.check_tensor(f"luts[{c}]", luts[c], dev, (n_tex, 4))
+        cull = [prep.vmin, prep.vmax, domains, *luts[:n_ch]]
+    int_a, flt_a = _k7_packs(prep, live, n_tex, adaptive_stride)
+    f32 = torch.float32
+    act_f = torch.empty((s_, n_rt, n_ct), dtype=f32, device=dev)
+    act_all_f = torch.empty((n_rt, n_ct), dtype=f32, device=dev)
+    live_f = torch.empty(s_, dtype=f32, device=dev)
+    ptrs = [acts_l, *cull[:3], act_f, act_all_f, live_f, *cull[3:]]
+    ptr_a = np.array([0 if t is None else t.data_ptr() for t in ptrs],
+                     np.uint64)
+    # the packs' addresses as plain ints: the cheapest form ctypes takes
+    kernels.launch("owx_activity_chunk", "K7",
+                   ptr_a.ctypes.data, len(ptr_a), int_a.ctypes.data,
+                   len(int_a), flt_a.ctypes.data, len(flt_a),
+                   kernels.stream_arg(dev))
+    profiling.count("launch.K7")
+    return act_f, act_all_f, live_f
+
+
+@profiling.in_span("activity")
+def combine_activity(prep: ChunkPrep, live, luts, domains, *,
+                     adaptive_stride: bool = False, plain: bool = False):
+    """Per-frame activity tables of one chunk: K7 for CUDA tables, the
+    plain-torch version for CPU tables (or anywhere when ``plain``).
+    ``live``: the (S,) bool live mask, on the host for K7.  Returns
+    (act_f (S, R, Ct), act_all_f (R, Ct), live_f (S,)) fp32 on the
+    tables' device; K1 takes ``live_f``."""
+    dev = prep.acts_l.device
+    if not plain and dev.type == "cuda":
+        return combine_activity_cuda(prep, live, luts, domains,
+                                     adaptive_stride=adaptive_stride)
+    if not (isinstance(live, torch.Tensor) and live.device == dev):
+        with profiling.sync("sync.live", dev):
+            live = torch.as_tensor(live, device=dev)
+    act_f, act_all_f = combine_activity_reference(
+        prep, live, luts, domains, adaptive_stride=adaptive_stride)
+    return act_f, act_all_f, live.to(torch.float32)
 
 
 class ClassifyTables(NamedTuple):
@@ -601,10 +700,11 @@ def sweep_chunk(mids, origins_y, cell_widths, y_pos, sec, live, luts,
     prep = prepare_chunk(mids, origins_y, cell_widths, y_pos, height, width,
                          tiles=tiles, adaptive_stride=adaptive_stride,
                          tf_cull=tf_cull)
-    act_f, act_all_f = combine_activity(prep, live, luts, domains,
-                                        adaptive_stride=adaptive_stride)
+    act_f, act_all_f, live_f = combine_activity(
+        prep, live, luts, domains, adaptive_stride=adaptive_stride,
+        plain=plain)
     tables = pack_luts(luts, domains, knots, sec.device)
-    return run_chunk(prep, sec, live, tables, dz, height, width,
+    return run_chunk(prep, sec, live_f, tables, dz, height, width,
                      act_f=act_f, act_all_f=act_all_f,
                      prev_trans=prev_trans, t_stop=t_stop, tiles=tiles,
                      adaptive_stride=adaptive_stride, plain=plain)

@@ -1,8 +1,9 @@
 """PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
-surface stop, at 2 to 16 levels), K2a/K2b (csrc/warp.cu), K3 (from the
-mids, at 1 to 12 levels), K4, K5 (csrc/xf.cu) and K6 (csrc/mids.cu)
-against their plain-torch versions (K1, K3 and K4 also through a
-32-texel LUT, and K3 on the unclipped chunks of ``megakernel=False``), and the port's main path, einsum
+surface stop, at 2 to 16 levels), K7 (csrc/sweep.cu, bit for bit),
+K2a/K2b (csrc/warp.cu), K3 (from the mids, at 1 to 12 levels), K4, K5
+(csrc/xf.cu) and K6 (csrc/mids.cu) against their plain-torch versions
+(K1, K3 and K4 also through a 32-texel LUT, and K3 on the unclipped
+chunks of ``megakernel=False``), and the port's main path, einsum
 lane and iso path, the packed exact march (against the classic one
 too), the offline CLI's ``--fast`` runs and the web
 viewer's frames (``aox=1`` among them) on CUDA against the same paths on
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from owlexabrick_tpu_torch.core.constants import MAX_CHANNELS
 from owlexabrick_tpu_torch.render import sweep as PS
 from owlexabrick_tpu_torch.utils.profiling import counts as COUNTS
 
@@ -71,9 +73,8 @@ def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
         tiles=tiles, adaptive_stride=True,
         tf_cull=([torch.from_numpy(v).to(cuda) for v in d["vr"]],
                  (1,) * len(d["vr"])))
-    live = torch.from_numpy(d["live"]).to(cuda)
-    act_f, act_all_f = PS.combine_activity(prep, live, luts, dom,
-                                           adaptive_stride=True)
+    act_f, act_all_f, live = PS.combine_activity(prep, d["live"], luts, dom,
+                                                 adaptive_stride=True)
     tables = PS.pack_luts(luts, dom, knots, cuda)
     args = (prep, torch.from_numpy(d["sec"]).to(cuda), live, tables,
             np.float32(0.75), H, W)
@@ -153,6 +154,117 @@ def test_k1_dense_32_texels_matches_plain_version(cuda, stop, channels):
     assert shape["carry_on_chip"] == 1
 
 
+# K7's cases: (slabs, levels, channels, LUT texels, the channel whose TF
+# domain is degenerate or None); 12 slabs leave a ragged group of 8
+K7_CASES = {"s1": (1, 1, 1, 128, None), "s4": (4, 4, 1, 128, None),
+            "s12": (12, 9, 2, 32, 1), "s24": (24, 4, MAX_CHANNELS, 128, None),
+            "s256": (256, 4, 2, 128, None)}
+
+
+def _k7_inputs(cuda, case, cull, live_kind, seed=17):
+    """Seeded K7 inputs on the card at 1080p's 5 x 15 tiles: per tile a
+    finest level (coarser levels active at random above it, some tiles
+    with none), so stride groups of 2, 4 and 8 form; TF-cull bounds with
+    empty (+inf, -inf) and inverted ranges; LUTs whose alpha is 0 over
+    runs (past two channels, the last one's everywhere); a degenerate
+    domain (lo = hi); live all dead, one live or mixed.
+    Returns (prep, live on the host, luts, domains)."""
+    s_, n_lv, n_ch, n_tex, degenerate = K7_CASES[case]
+    rng = np.random.default_rng(seed + s_)
+    n_rt, n_ct = 5, 15
+    finest = rng.integers(0, n_lv + 1, (n_rt, n_ct))  # n_lv: no level
+    lv = np.arange(n_lv)[:, None, None, None]
+    acts = (lv >= finest[None, None]) & (
+        rng.uniform(size=(n_lv, s_, n_rt, n_ct)) < 0.7)
+    vmin = rng.uniform(-0.3, 1.2, (n_ch, s_, n_rt)).astype(np.float32)
+    vmax = (vmin + rng.uniform(-0.1, 0.5, vmin.shape)).astype(np.float32)
+    empty = rng.uniform(size=vmin.shape) < 0.1
+    vmin[empty], vmax[empty] = np.inf, -np.inf
+    luts = rng.uniform(0.0, 1.0, (n_ch, n_tex, 4)).astype(np.float32)
+    luts[:, :n_tex * 2 // 5, 3] = 0.0
+    luts[:, 3 * n_tex // 4::3, 3] = 0.0
+    if n_ch > 2:
+        luts[-1, :, 3] = 0.0
+    dom = np.stack([rng.uniform(-0.2, 0.2, n_ch),
+                    rng.uniform(0.8, 1.2, n_ch)], 1).astype(np.float32)
+    if degenerate is not None:
+        # every entry then reads texels 0 and 1: give them some alpha
+        luts[degenerate, :, 3] = rng.uniform(0.1, 1.0, n_tex)
+        dom[degenerate, 1] = dom[degenerate, 0]
+    live = {"dead": np.zeros(s_, bool), "one": np.arange(s_) == s_ // 2,
+            "mixed": rng.uniform(size=s_) < 0.8}[live_kind]
+    if live_kind == "mixed":  # the first slab live, the last dead (S > 1)
+        live[0] = True
+        live[-1] = s_ == 1
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda)
+
+    prep = PS.ChunkPrep(
+        mids=(), origins_y=(0.0,) * n_lv,
+        cell_widths=tuple(float(1 << i) for i in range(n_lv)),
+        acts_l=dev(acts), vmin=dev(vmin) if cull else None,
+        vmax=dev(vmax) if cull else None,
+        y_pos=torch.zeros((s_, 1), device=cuda))
+    return prep, live, [dev(lut) for lut in luts], dev(dom)
+
+
+@pytest.mark.parametrize("live_kind", ["dead", "one", "mixed"])
+@pytest.mark.parametrize("stride", [False, True], ids=["unit", "stride"])
+@pytest.mark.parametrize("cull", [False, True], ids=["no_cull", "cull"])
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_k7_bit_equal_plain(cuda, case, cull, stride, live_kind):
+    """K7 (``combine_activity_cuda``) against ``combine_activity_reference``
+    on the card, ``torch.equal`` on every table; the dispatcher launches
+    K7 once for CUDA tables and gives the same."""
+    prep, live, luts, dom = _k7_inputs(cuda, case, cull, live_kind)
+    live_d = torch.from_numpy(live).to(cuda)
+    n0 = COUNTS["launch.K7"]
+    got = PS.combine_activity_cuda(prep, live, luts, dom,
+                                   adaptive_stride=stride)
+    assert COUNTS["launch.K7"] == n0 + 1
+    want = (*PS.combine_activity_reference(prep, live_d, luts, dom,
+                                           adaptive_stride=stride),
+            live_d.to(torch.float32))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    routed = PS.combine_activity(prep, torch.from_numpy(live), luts, dom,
+                                 adaptive_stride=stride)
+    assert COUNTS["launch.K7"] == n0 + 2
+    assert all(torch.equal(g, w) for g, w in zip(routed, want))
+    act = want[0]
+    if live_kind == "dead":
+        assert not act.any()
+    else:
+        assert act.any() and not act.all()
+        if stride and live_kind == "mixed" and prep.acts_l.shape[1] >= 4:
+            assert (act > 1).any(), "no adaptive-stride group formed"
+
+
+def test_k7_refuses_what_it_does_not_take(cuda):
+    """More slabs than MAX_SLABS, CPU tensors beside CUDA ones and a live
+    mask on the card raise; nothing falls back."""
+    from owlexabrick_tpu_torch import kernels
+
+    prep, live, luts, dom = _k7_inputs(cuda, "s4", True, "mixed")
+    s_ = kernels.MAX_SLABS + 1
+    big = prep._replace(acts_l=torch.zeros((1, s_, 5, 15), dtype=torch.bool,
+                                           device=cuda), vmin=None, vmax=None,
+                        cell_widths=(1.0,))
+    bad = [(big, np.ones(s_, bool), luts, dom),
+           (prep, live, [lut.cpu() for lut in luts], dom),
+           (prep, live, luts, dom.cpu()),
+           (prep._replace(vmin=prep.vmin.cpu()), live, luts, dom),
+           (prep, torch.from_numpy(live).to(cuda), luts, dom)]
+    n0 = COUNTS["launch.K7"]
+    for args in bad:
+        with pytest.raises(ValueError):
+            PS.combine_activity_cuda(*args, adaptive_stride=True)
+    assert COUNTS["launch.K7"] == n0
+
+
 def test_main_path_on_card_matches_cpu(cuda):
     """render_slabs_camera on the card (K6, K1) == on the CPU (plain)."""
     from owlexabrick_tpu_torch.bench_scene import synthetic_volume
@@ -169,10 +281,12 @@ def test_main_path_on_card_matches_cpu(cuda):
                          30.0, 24, 24)
     fs = make_frame_state(cam, 1, [[0.0, 1.0]], dt=1.0, opacity_scale=0.8)
     cfg = SlabConfig(nslabs=20, chunk=4, adaptive_stride=True)
-    n0 = (COUNTS["launch.K1"], COUNTS["launch.K6"])
+    n0 = (COUNTS["launch.K1"], COUNTS["launch.K6"], COUNTS["launch.K7"])
     got = render_slabs_camera(g_gpu, fs, cfg, cam, 24, 24).cpu()
     assert COUNTS["launch.K1"] > n0[0]
     assert COUNTS["launch.K6"] > n0[1]
+    # one K7 per chunk swept
+    assert COUNTS["launch.K7"] - n0[2] == COUNTS["launch.K1"] - n0[0]
     want = render_slabs_camera(g_cpu, fs, cfg, cam, 24, 24)
     assert float((got - want).abs().max()) < 1e-5
     plain = render_slabs_camera(

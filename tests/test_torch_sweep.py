@@ -13,45 +13,110 @@ from owlexabrick_tpu.render import slabs as R
 from owlexabrick_tpu_torch.render import slabs as P
 from owlexabrick_tpu_torch.render import sweep as PS
 
-from torch_sweep_inputs import CWS, H, NY, ORG_Y, TILES, W, seeded_inputs
+from torch_sweep_inputs import (CWS, H, ORG_Y, TILES, W, deep_levels,
+                                seeded_inputs)
 
 
 def _port_mids(d):
     return [torch.from_numpy(np.stack([v, m])) for v, m in d["mids"]]
 
 
+# the activity tables' cases: (seed, slabs, levels, channels, TF cull);
+# seeds 0 and 1 at the shared inputs' shapes, the TF drag's chunk (4
+# slabs over 4 levels), 12 slabs (a ragged group of 8), two channels, and
+# no TF cull
+ACTIVITY_CASES = {0: (0, 6, None, 1, True), 1: (1, 6, None, 1, True),
+                  "tf_drag_chunk": (2, 4, 4, 1, True),
+                  "s12_ragged": (3, 12, None, 1, True),
+                  "two_channels": (4, 6, None, 2, True),
+                  "no_cull": (5, 6, None, 1, False)}
+
+
 @pytest.mark.parametrize("stride", [False, True])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_activity_and_stride_tables_exact(stride, seed):
-    d = seeded_inputs(seed)
-    tf_cull = ([jnp.asarray(v) for v in d["vr"]], (1, 1))
+@pytest.mark.parametrize("case", list(ACTIVITY_CASES))
+def test_activity_and_stride_tables_exact(stride, case):
+    """The geometric tables of ``prepare_chunk`` and the plain K7
+    (``combine_activity`` on CPU tensors) equal the JAX package's."""
+    seed, slabs, n_levels, channels, cull = ACTIVITY_CASES[case]
+    d = seeded_inputs(seed, channels=channels, slabs=slabs,
+                      levels=deep_levels(n_levels) if n_levels else None)
+    if n_levels:
+        # every level spans the rows: level l keeps columns below 16 (l+1)
+        # only, so each column tile has another finest level
+        for li, (v, m) in enumerate(d["mids"][:-1]):
+            v[..., 16 * (li + 1):] = 0.0
+            m[..., 16 * (li + 1):] = 0.0
+    n_lv = len(d["mids"])
+    chans = [v.reshape(-1, *m.shape) for v, m in d["mids"]]
+    luts = d.get("luts", [d["lut"]])
     ref_prep = RS.prepare_chunk(
-        [([jnp.asarray(v)], jnp.asarray(m)) for v, m in d["mids"]],
-        list(ORG_Y), list(CWS), jnp.asarray(d["y_pos"]), H, W,
+        [([jnp.asarray(c) for c in v], jnp.asarray(m))
+         for v, (_, m) in zip(chans, d["mids"])],
+        list(d["org_y"]), list(d["cws"]), jnp.asarray(d["y_pos"]), H, W,
         tiles=TILES, adaptive_stride=stride, fuse_mids=False,
-        concat_levels=False, tf_cull=tf_cull)
+        concat_levels=False,
+        tf_cull=([jnp.asarray(v) for v in d["vr"]], (1,) * n_lv)
+        if cull else None)
     prep = PS.prepare_chunk(
-        _port_mids(d), ORG_Y, CWS, torch.from_numpy(d["y_pos"]), H, W,
+        [torch.from_numpy(np.concatenate([v, m[None]]))
+         for v, (_, m) in zip(chans, d["mids"])],
+        d["org_y"], d["cws"], torch.from_numpy(d["y_pos"]), H, W,
         tiles=TILES, adaptive_stride=stride,
-        tf_cull=([torch.from_numpy(v) for v in d["vr"]], (1, 1)))
-    for li in range(len(NY)):
+        tf_cull=([torch.from_numpy(v) for v in d["vr"]], (1,) * n_lv)
+        if cull else None)
+    assert prep.acts_l.shape == (n_lv, slabs, 3, 3)
+    for li in range(n_lv):
         assert np.array_equal(np.asarray(ref_prep.acts_l[li]),
                               prep.acts_l[li].numpy())
-    assert np.array_equal(np.asarray(ref_prep.vmin), prep.vmin.numpy())
-    assert np.array_equal(np.asarray(ref_prep.vmax), prep.vmax.numpy())
+    if cull:
+        assert prep.vmin.shape[0] == channels
+        assert np.array_equal(np.asarray(ref_prep.vmin), prep.vmin.numpy())
+        assert np.array_equal(np.asarray(ref_prep.vmax), prep.vmax.numpy())
+    else:
+        assert prep.vmin is None and ref_prep.vmin is None
     # the tables must exercise both branches of every tile decision
     assert prep.acts_l.any() and not prep.acts_l.all()
 
     ref_act, ref_all = RS.combine_activity(
-        ref_prep, jnp.asarray(d["live"]), [jnp.asarray(d["lut"])],
-        [jnp.asarray(d["dom"][0])], list(CWS), adaptive_stride=stride)
-    act, act_all = PS.combine_activity(
-        prep, torch.from_numpy(d["live"]), [torch.from_numpy(d["lut"])],
-        torch.from_numpy(d["dom"]), adaptive_stride=stride)
+        ref_prep, jnp.asarray(d["live"]), [jnp.asarray(lut) for lut in luts],
+        [jnp.asarray(dom) for dom in d["dom"]], list(d["cws"]),
+        adaptive_stride=stride)
+    act, act_all, live_f = PS.combine_activity(
+        prep, torch.from_numpy(d["live"]),
+        [torch.from_numpy(lut) for lut in luts], torch.from_numpy(d["dom"]),
+        adaptive_stride=stride)
     assert np.array_equal(np.asarray(ref_act), act.numpy())
     assert np.array_equal(np.asarray(ref_all), act_all.numpy())
+    assert np.array_equal(live_f.numpy(), d["live"].astype(np.float32))
     if stride:
         assert (act > 1).any(), "no adaptive-stride group formed"
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["no_cull", "cull"])
+def test_k7_argument_packs(cull):
+    """K7's int and float packs (``sweep._k7_packs``) carry the shapes it
+    is given, the flags, each slab's live bit and the cell widths, from a
+    host mask as a bool tensor, a numpy array or a list; a mask of another
+    length raises."""
+    d = seeded_inputs(6, channels=2, levels=deep_levels(3), slabs=5)
+    prep = PS.prepare_chunk(
+        [torch.from_numpy(np.concatenate([v, m[None]]))
+         for v, m in d["mids"]],
+        d["org_y"], d["cws"], torch.from_numpy(d["y_pos"]), H, W,
+        tiles=TILES, adaptive_stride=True,
+        tf_cull=([torch.from_numpy(v) for v in d["vr"]], (1,) * 3)
+        if cull else None)
+    live = np.asarray([True, False, True, True, False])
+    want = [3, 2 if cull else 0, 5, 3, 3, 32 if cull else 0, int(cull), 1,
+            1, 0, 1, 1, 0]
+    for host in (torch.from_numpy(live), live, live.tolist()):
+        ints, flts = PS._k7_packs(prep, host, 32, True)
+        assert ints.dtype == np.int32 and ints.tolist() == want
+        assert flts.dtype == np.float32 and flts.tolist() == [1.0, 2.0, 4.0]
+    ints, _ = PS._k7_packs(prep, live, 32, False)
+    assert ints[7] == 0
+    with pytest.raises(ValueError):
+        PS._k7_packs(prep, live[:4], 32, True)
 
 
 @pytest.mark.parametrize("dense", [False, True], ids=["knots", "dense"])

@@ -20,33 +20,33 @@ def deep_levels(n_levels):
             for lv in range(n_levels)]
 
 
-def seeded_inputs(seed, channels=1, levels=None):
+def seeded_inputs(seed, channels=1, levels=None, slabs=S):
     """Seeded chunk inputs; ``channels`` > 1 adds channels 1.. (their
     values, LUTs, domains and TF-cull bounds) from a second stream, so
     channel 0's inputs are the same at every count.  ``mids`` holds per
     level (channel values, mask); the values are (S, ny, W) for one
     channel, (C, S, ny, W) for more.  ``levels``: (ny, cw, origin y) per
     level (``deep_levels``), else the two levels NY, CWS, ORG_Y; ``cws``
-    and ``org_y`` hold them."""
+    and ``org_y`` hold them.  ``slabs``: the chunk's S."""
     rng = np.random.default_rng(seed)
     nys = NY if levels is None else tuple(lv[0] for lv in levels)
     mids = []
     for ny in nys:
-        m = rng.uniform(0.0, 1.0, (S, ny, W)).astype(np.float32)
+        m = rng.uniform(0.0, 1.0, (slabs, ny, W)).astype(np.float32)
         # empty patches so activity differs per tile
         m[:, :, rng.integers(0, W - 12):][:, :ny // 3] = 0.0
-        m[rng.uniform(size=(S, ny, W)) < 0.3] = 0.0
-        v = (m * rng.uniform(0.0, 1.0, (S, ny, W))).astype(np.float32)
+        m[rng.uniform(size=(slabs, ny, W)) < 0.3] = 0.0
+        v = (m * rng.uniform(0.0, 1.0, (slabs, ny, W))).astype(np.float32)
         mids.append((v, m))
     yrow = np.linspace(1.0, 21.0, H, dtype=np.float32)
-    y_pos = (yrow[None] * (1.0 + 0.01 * np.arange(S, dtype=np.float32)
+    y_pos = (yrow[None] * (1.0 + 0.01 * np.arange(slabs, dtype=np.float32)
                            [:, None])).astype(np.float32)
-    live = rng.uniform(size=S) < 0.85
+    live = rng.uniform(size=slabs) < 0.85
     live[0] = True
     vr = []
     for ny in nys:
-        lo = rng.uniform(0.0, 1.0, (1, S, ny, 1)).astype(np.float32)
-        hi = lo + rng.uniform(0.0, 0.5, (1, S, ny, 1)).astype(np.float32)
+        lo = rng.uniform(0.0, 1.0, (1, slabs, ny, 1)).astype(np.float32)
+        hi = lo + rng.uniform(0.0, 0.5, (1, slabs, ny, 1)).astype(np.float32)
         r = np.concatenate([lo, hi], -1)
         r[:, :, ::5] = np.asarray([np.inf, -np.inf], np.float32)
         vr.append(r)
