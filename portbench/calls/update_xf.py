@@ -1,11 +1,17 @@
 """``update_xf``: a transfer-function edit (accumulation restarts; the
 camera products of an unchanged pose are reused).  Arguments:
-``channel``; ``colormap``, a file ``portbench/inputs/<name>.json``;
-``lower``, the opacity ramp's lower knot in fractions of the value
-domain (the ramp rises linearly from 0 there to 1 at the top of the
-domain, over 128 texels); ``opacity_scale``.  The domain is [0, the
-scene's largest value].  A colormap or opacity scale left out keeps the
-one set before."""
+``channel`` (0 by default; below the scene's number of fields);
+``colormap``, a file ``portbench/inputs/<name>.json``; ``lower``, the
+opacity ramp's lower knot in fractions of the value domain (the ramp
+rises linearly from 0 there to 1 at the top of the domain, over 128
+texels); ``opacity_scale``.  The domain is the channel's field's
+(``Session.domains``).  A colormap or opacity scale left out keeps the
+one set before.
+
+On the reference's side the state holds ``xf_lut`` (C, 128, 4) and
+``xf_domain`` (C, 2) for the scene's C fields, each call setting its
+channel's row, and ``xf_channels``, the channels set so far, which
+``Session.reference_state`` checks and takes out."""
 
 import json
 import pathlib
@@ -28,23 +34,41 @@ def colors(name: str) -> np.ndarray:
         return np.asarray(json.load(f)["colors"], np.float32)
 
 
-def program(sess, args):
+def channel(sess, args) -> int:
+    """The call's channel, refused unless the scene has its field."""
     ch = int(args.get("channel", 0))
+    if not 0 <= ch < len(sess.domains):
+        raise ValueError(f"update_xf channel {ch}: the scene has "
+                         f"{len(sess.domains)} field(s)")
+    return ch
+
+
+def program(sess, args):
+    ch = channel(sess, args)
     fs = sess.r.fs
     rgb = (colors(args["colormap"]) if "colormap" in args
            else np.asarray(fs.xf_lut)[ch, :, :3])
     scale = float(args.get("opacity_scale", fs.xf_opacity_scale))
-    sess.r.update_xf(ch, rgb, opacities(args["lower"]), sess.domain, scale)
+    sess.r.update_xf(ch, rgb, opacities(args["lower"]), sess.domains[ch],
+                     scale)
 
 
 def reference(sess, state, args):
-    if int(args.get("channel", 0)) != 0:
-        raise ValueError("the reference holds one channel's transfer "
-                         "function")
-    rgb = (colors(args["colormap"]) if "colormap" in args
-           else state["xf_lut"][0, :, :3])
-    lut = np.concatenate([rgb, opacities(args["lower"])[:, None]], 1)[None]
-    state.update(xf_lut=lut.astype(np.float32),
-                 xf_domain=np.asarray([sess.domain], np.float32),
+    ch = channel(sess, args)
+    done = set(state.get("xf_channels", ()))
+    if "xf_lut" in state:
+        lut, dom = state["xf_lut"].copy(), state["xf_domain"].copy()
+    else:
+        fields = len(sess.domains)
+        lut = np.zeros((fields, NUM_XF_VALUES, 4), np.float32)
+        dom = np.zeros((fields, 2), np.float32)
+    if "colormap" in args:
+        lut[ch, :, :3] = colors(args["colormap"])
+    elif ch not in done:
+        raise ValueError(f"update_xf channel {ch}: no colormap given and "
+                         f"none set before")
+    lut[ch, :, 3] = opacities(args["lower"])
+    dom[ch] = sess.domains[ch]
+    state.update(xf_lut=lut, xf_domain=dom, xf_channels=done | {ch},
                  xf_opacity_scale=np.float32(args.get(
                      "opacity_scale", state.get("xf_opacity_scale"))))

@@ -2,7 +2,8 @@
 names the cell's configuration, traffic mix and metrics, and each of
 them is a file of its own that this module finds by name:
 
-* ``configs/<config>.json``: the scene, the render size, the
+* ``configs/<config>.json``: the scene (made by its generator,
+  ``scenes/<pattern>.py``; each field's TF domain), the render size, the
   ``RenderConfig`` fields that differ from the default
   (``render.config``), the plain reference's module under
   ``reference/`` (``render.reference``) and the set-up calls;
@@ -132,8 +133,8 @@ class Session:
         self.cells_s = time.perf_counter() - t0
         if self.cells_how == "built_and_cached":
             self.build_s["cells"] = self.cells_s
-        self.value_max = float(np.max(cells[2]))
-        self.domain = [0.0, self.value_max]
+        self.domains = field_domains(cfg["scene"], cells[2])
+        self.domain = self.domains[0]
         self.kernels_s = 0.0
         if torch_device_type(device) == "cuda":
             # the kernels' library: built by the first run of a checkout
@@ -151,6 +152,11 @@ class Session:
         self.on_words = on_words
         rc = RenderConfig(**{"num_channels": 1,
                              **cfg["render"].get("config", {})})
+        if rc.num_channels != len(self.domains):
+            raise ValueError(
+                f"{cfg['name']}: render.config num_channels "
+                f"{rc.num_channels} for a scene of {len(self.domains)} "
+                f"fields (channel c draws field c)")
         cls = renderer_cls or Renderer
         self.r = cls(cells, self.width, self.height, cfg=rc, device=device)
         self.reseed(seed)
@@ -175,6 +181,11 @@ class Session:
         state = {}
         for name, args in self.setup_calls + f.calls:
             _call(name).reference(self, state, args)
+        xf_set = state.pop("xf_channels", ())
+        for c in range(len(self.domains)):
+            if c not in xf_set:
+                raise ValueError(f"no update_xf call set channel {c}'s "
+                                 f"transfer function")
         return self.reference_module.FrameInputs(**state)
 
     def frame(self, k: int):
@@ -219,6 +230,19 @@ class Session:
         del self.r
         gc.collect()
         _empty_cache(self.device)
+
+
+def field_domains(scene: dict, scalars) -> list:
+    """Each field's value domain: the scene's ``domains`` where it gives
+    them, else [0, the field's largest value]."""
+    fields = np.atleast_2d(scalars)
+    if "domains" not in scene:
+        return [[0.0, float(np.max(f))] for f in fields]
+    doms = [[float(lo), float(hi)] for lo, hi in scene["domains"]]
+    if len(doms) != len(fields):
+        raise ValueError(f"scene.domains gives {len(doms)} domains for "
+                         f"{len(fields)} fields")
+    return doms
 
 
 _CALLS = {}
@@ -303,11 +327,12 @@ def judge(rows, limits: dict):
     return worst, failed
 
 
-def per_layer_metrics(sess: Session, cell: Cell):
+def per_layer_metrics(sess: Session, cell: Cell, run: Run):
     """The profiled stretch after the window: the frames at the cell's
     ``trace.phases`` of the traffic mix (the same frames for every seed),
-    with device activity, the metrics' taps and the host spans.  Returns
-    (metrics, device extras, breakdown)."""
+    with device activity, the metrics' taps and the host spans; the
+    readers also see the window (``Trace.run``).  Returns (metrics,
+    device extras, breakdown)."""
     readers = {name: _module(ROOT / "metrics" / f"{name}.py")
                for name in cell.per_layer}
     taps = [(name, *mod.TAP, mod.record) for name, mod in readers.items()
@@ -321,6 +346,7 @@ def per_layer_metrics(sess: Session, cell: Cell):
         return len(ks)
 
     tr = tracing.profile(frames, taps=taps, spans=tracing.HOST_SPANS)
+    tr.run = run
     metrics = {}
     for name, mod in readers.items():
         v = mod.read(tr)
@@ -357,7 +383,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start,
         torch.cuda.synchronize()
     t_window = time.perf_counter()
     setup_s = t_window - t_start
-    log(f"portbench: {cell.name} seed {seed}: cells {sess.cells_how}, "
+    log(f"portbench: {cell.name} seed {seed}: {len(sess.cells[1]):,} cells "
+        f"of {len(sess.domains)} field(s) {sess.cells_how}, "
         f"set-up {setup_s:.3f} s: start and imports "
         f"{t_session - t_start:.3f}, cells {sess.cells_s:.3f}, kernels "
         f"{sess.kernels_s:.3f}, Renderer "
@@ -373,7 +400,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start,
 
     extras, breakdown, metrics = {}, None, {}
     if trace:
-        metrics, extras, breakdown = per_layer_metrics(sess, cell)
+        metrics, extras, breakdown = per_layer_metrics(sess, cell, run)
         log(f"portbench: traced {extras}; idle by host span "
             f"{breakdown['idle_gaps']}")
     else:

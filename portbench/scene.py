@@ -1,20 +1,25 @@
-"""The benchmark's scenes: the exajet pattern's cells (a frozen copy of
+"""The benchmark's scenes: a configuration's cells, made by the generator
+its ``scene.pattern`` names (``scenes/<pattern>.py``) from the
+configuration alone in every run, or loaded from a file under
+``portbench/.cache/`` that the first run of a checkout writes where the
+configuration asks for it.  Here too the exajet pattern's frozen
+generator (a copy of
 ``owlexabrick_tpu_torch.bench_scene.exajet_pattern_cells`` and of the
-raw2cells threshold collapse it runs), made from the configuration alone
-in every run, or loaded from a file under ``portbench/.cache/`` that the
-first run of a checkout writes where the configuration asks for it.
+raw2cells threshold collapse it runs), which ``scenes/exajet.py`` calls.
 
 This module imports numpy only: the spawned processes of the parallel
 build import it, and none of them touches the card."""
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import pathlib
 
 import numpy as np
 
 CACHE_DIR = pathlib.Path(__file__).resolve().parent / ".cache"
+SCENES = pathlib.Path(__file__).resolve().parent / "scenes"
 
 
 def volume_to_cells(vol: np.ndarray, threshold: float, max_level: int):
@@ -173,25 +178,61 @@ def _stop_resource_tracker():
             pass
 
 
+def scene_module(pattern: str):
+    """The generator module of scene ``pattern``: ``SCENES/<pattern>.py``."""
+    path = SCENES / f"{pattern}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown scene pattern {pattern!r}: no generator "
+                         f"{path}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench.scenes.{pattern}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_cells(cells):
+    """Refuse cells that are not (lower (N, 3) int32, level (N,) int32,
+    scalars (N,) or (C, N) float32) with 1 <= C <= the port's channel
+    cap."""
+    from owlexabrick_tpu_torch.core.constants import MAX_CHANNELS
+
+    lower, level, scalars = cells
+    n = lower.shape[0]
+    fields = 1 if scalars.ndim == 1 else scalars.shape[0]
+    if (lower.shape != (n, 3) or level.shape != (n,)
+            or scalars.shape[-1:] != (n,) or scalars.ndim > 2
+            or lower.dtype != np.int32 or level.dtype != np.int32
+            or scalars.dtype != np.float32):
+        raise ValueError(
+            f"scene cells must be lower (N, 3) int32, level (N,) int32, "
+            f"scalars (N,) or (C, N) float32; got {lower.shape} "
+            f"{lower.dtype}, {level.shape} {level.dtype}, {scalars.shape} "
+            f"{scalars.dtype}")
+    if not 1 <= fields <= MAX_CHANNELS:
+        raise ValueError(f"a scene of {fields} fields: the port draws 1 to "
+                         f"{MAX_CHANNELS}")
+    return cells
+
+
 def scene_cells(config: dict, cache_dir=CACHE_DIR):
-    """The cells of a configuration's ``scene`` section.  With
-    ``"cache": true`` the first call in a checkout builds them and
-    writes them to ``cache_dir``
-    (atomically); later calls load that file.  Returns ((lower, level,
-    scalars), how: "built" | "built_and_cached" | "loaded")."""
+    """The cells of a configuration's ``scene`` section, made by the
+    generator its ``pattern`` names.  With ``"cache": true`` the first
+    call in a checkout builds them and writes them to ``cache_dir``
+    (atomically, scalars as the generator returned them); later calls
+    load that file.  Returns ((lower, level, scalars), how: "built" |
+    "built_and_cached" | "loaded")."""
     sc = config["scene"]
-    if sc["pattern"] != "exajet":
-        raise ValueError(f"unknown scene pattern {sc['pattern']!r}")
-    args = dict(n=int(sc["n"]), threshold=float(sc["threshold"]),
-                max_level=int(sc["max_level"]), wings=int(sc["wings"]))
+    gen = scene_module(sc["pattern"])
     if not sc.get("cache", False):
-        return exajet_pattern_cells(**args), "built"
+        return check_cells(gen.cells(sc)), "built"
     cache_dir = pathlib.Path(cache_dir)
     path = cache_dir / f"cells_{config['name']}.npz"
     if path.exists():
         with np.load(path) as z:
-            return (z["lower"], z["level"], z["scalars"]), "loaded"
-    cells = exajet_pattern_cells(**args)
+            return check_cells(
+                (z["lower"], z["level"], z["scalars"])), "loaded"
+    cells = check_cells(gen.cells(sc))
     cache_dir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(path.stem + ".partial.npz")
     np.savez(tmp, lower=cells[0], level=cells[1], scalars=cells[2])

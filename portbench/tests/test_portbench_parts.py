@@ -128,6 +128,37 @@ def test_union_and_idle_gaps():
     assert not ev[2].is_kernel and ev[0].is_kernel
 
 
+def test_split_metrics_read_as_their_base():
+    """A metric split by the end-to-end metric it moves reads what its
+    base reads, its tapped calls handed over under the base's name; the
+    zoom's frame time is the window's, as ``frame_ms`` reads it."""
+    from portbench import harness
+    from portbench.harness import Run
+    from portbench.trace import DeviceEvent, Trace
+
+    ev = [DeviceEvent("void sweep_kernel<4>(Params)", 0, 4000),
+          DeviceEvent("elementwise_kernel", 5000, 1000)]
+    call = dict(nbytes=3.35e3, slab_pixels=8, comps=1, levels=1,
+                act_f=torch.ones(4))
+    tr = Trace(events=ev, frames=2, window_s=1e-5,
+               calls={"k1_roofline_pct": [call],
+                      "k1_roofline_pct.zoom": [call]})
+    for base in ("device_idle_pct", "launches_per_frame", "glue_device_ms",
+                 "k1_roofline_pct"):
+        mine = harness._module(harness.ROOT / "metrics" / f"{base}.py")
+        split = harness._module(harness.ROOT / "metrics"
+                                / f"{base}.zoom.py")
+        assert split.read(tr) == mine.read(tr) is not None
+        assert getattr(split, "TAP", None) == getattr(mine, "TAP", None)
+    k1 = harness._module(harness.ROOT / "metrics" / "k1_roofline_pct.zoom.py")
+    tr.calls = {"k1_roofline_pct": [call]}
+    assert k1.read(tr) is None
+    fz = harness._module(harness.ROOT / "metrics" / "frame_ms.zoom.py")
+    assert fz.read(tr) is None
+    tr.run = Run(seconds=2.0, completed=8)
+    assert fz.read(tr) == 250.0
+
+
 def test_yardstick():
     from portbench import yardstick as Y
 

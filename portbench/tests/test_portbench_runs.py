@@ -31,7 +31,9 @@ def test_sound_run_is_correct(workload):
     assert list(res)[-1] == "checks"
     assert set(res["checks"]) == set(tiny_cell(workload).params["limits"])
     assert all(c["value"] == 0.0 for c in res["checks"].values())
-    assert {"frame_ms", "setup_s", "peak_mem_mb"} <= set(res["metrics"])
+    assert {"setup_s", "peak_mem_mb"} <= set(res["metrics"])
+    cell = tiny_cell(workload)
+    assert ("frame_ms" in res["metrics"]) == ("frame_ms" in cell.end_to_end)
     assert res["attempted"] >= 1
 
 
@@ -145,8 +147,12 @@ def test_tiny_cell_on_card_with_trace(cuda, workload):
     assert res["device"]["platform"] == "gpu"
     assert 0 < res["device"]["busy_s"] <= res["device"]["window_s"]
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+    # a quantity split by the end-to-end metric it moves keeps its base
+    # name before the first dot (device_idle_pct.zoom)
+    bases = {name.split(".", 1)[0] for name in res["metrics"]}
     assert {"device_idle_pct", "launches_per_frame",
-            "k1_roofline_pct"} <= set(res["metrics"])
-    for name in ("k1_roofline_pct", "k6_roofline_pct"):
-        if name in res["metrics"]:
-            assert 0 < res["metrics"][name]["value"] <= 105
+            "k1_roofline_pct"} <= bases
+    assert set(res["metrics"]) <= set(cell.per_layer)
+    for name, m in res["metrics"].items():
+        if name.split(".", 1)[0] in ("k1_roofline_pct", "k6_roofline_pct"):
+            assert 0 < m["value"] <= 105

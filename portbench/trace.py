@@ -48,13 +48,16 @@ class DeviceEvent:
 @dataclass
 class Trace:
     """One traced stretch: its device events, its frames, its length on
-    the host's clock, and what the metrics' taps recorded."""
+    the host's clock, and what the metrics' taps recorded; ``run``, the
+    untraced window before it (``harness.Run``), for a per-layer metric
+    read on the host's clock."""
 
     events: List[DeviceEvent]
     frames: int
     window_s: float
     calls: dict = field(default_factory=dict)
     host_spans: list = field(default_factory=list)
+    run: object = None
 
     def busy_s(self) -> float:
         """Seconds in which an operation ran on the device (the union of
