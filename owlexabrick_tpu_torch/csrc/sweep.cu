@@ -115,6 +115,7 @@ struct Params {
   const float* prev_t;   // (H, W) or null
   const float* t_slab;   // (S,) or null: each slab's sweep parameter
   const float* t_stop;   // (H, W) or null: per-pixel stop parameter
+  const unsigned char* done;  // (1,) bool or null: the early exit's flag
   const float* dom;      // (C, 2)
   const float* kpos;     // (C, M), sorted, padded with N
   const float* ksd;      // (C, M, 4)
@@ -292,8 +293,11 @@ sweep_kernel(const __grid_constant__ Params p) {
   int parity = 0;
   tile_reduce<NCH>(rec, wrec, crec, parity, p.shape.k, cluster);
   const bool all_act = p.act_all[rt * p.n_ct + ct] > 0.5f;
-  // tiles every earlier chunk saturated do nothing at all
-  for (int s = 0; rec[0] > 0.005f && s < p.S; ++s) {
+  // tiles every earlier chunk saturated do nothing at all, nor does any
+  // tile once the early exit's flag says every pixel has saturated (the
+  // outputs are then rgb 0 and prev_t)
+  const bool done = p.done && *p.done;
+  for (int s = 0; !done && rec[0] > 0.005f && s < p.S; ++s) {
     // per-(slab, tile) step weight: 0 = no cell reaches the tile, k > 1 =
     // this slab stands in for k coarse-only slabs (adaptive stride)
     const float w_s =
@@ -536,13 +540,13 @@ int unpack(Params& p, const uint64_t* ptrs, int n_ptrs, const int* ints,
   p.n_ct = (p.W + p.tc - 1) / p.tc;
   for (int l = 0; l < L; ++l) p.ny[l] = ints[13 + l];
   if (!ptrs || !flts) return 0;  // the shape alone
-  if (n_flts != 1 + 2 * L || n_ptrs != 20 + L)
+  if (n_flts != 1 + 2 * L || n_ptrs != 21 + L)
     return (int)cudaErrorInvalidValue;
   p.dz = flts[0];
   for (int l = 0; l < L; ++l) {
     p.cw[l] = flts[1 + l];
     p.orgy_half[l] = flts[1 + L + l] + 0.5f;
-    p.mids[l] = (const float*)ptrs[20 + l];
+    p.mids[l] = (const float*)ptrs[21 + l];
   }
   p.ypos = (const float*)ptrs[0];
   p.sec = (const float*)ptrs[1];
@@ -564,6 +568,7 @@ int unpack(Params& p, const uint64_t* ptrs, int n_ptrs, const int* ints,
   p.out_t = (float*)ptrs[17];
   p.t_slab = (const float*)ptrs[18];
   p.t_stop = (const float*)ptrs[19];
+  p.done = (const unsigned char*)ptrs[20];
   if (p.has_pt && !p.prev_t) return (int)cudaErrorInvalidValue;
   if (p.has_stop && !(p.t_slab && p.t_stop))
     return (int)cudaErrorInvalidValue;
@@ -651,7 +656,8 @@ extern "C" int owx_sweep_shape(const int* ints, int n_ints, int occupancy,
 //   ptrs: ypos, sec, live, act, act_all, prev_t (or 0), dom, kpos, ksd,
 //         kbase, kcum, lut, dlut, carry scratch (owx_sweep_shape's floats;
 //         0 when the carry is on chip), out_r, out_g, out_b, out_t,
-//         t_slab (or 0), t_stop (or 0), then one mids pointer per level
+//         t_slab (or 0), t_stop (or 0), the early exit's flag (or 0:
+//         never set), then one mids pointer per level
 //   ints: n_levels, n_ch, S, H, W, tr, tc, compressed, n_texels, m_knots,
 //         tau_mask, has_pt, has_stop, then ny per level
 //   flts: dz, then cw per level, then lattice y origin per level

@@ -40,6 +40,7 @@ run on the grids' device, as exact gathers, scatters and min/max.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -861,6 +862,13 @@ def _f32(v, device) -> torch.Tensor:
     return torch.tensor(np.float32(v), device=device)
 
 
+def _host_scalar(v) -> torch.Tensor:
+    """A float32 scalar on the host for a torch op on the card: the op
+    takes it by value, in float32 as one on the card, with no copy to
+    the card and no wait."""
+    return _f32(v, "cpu")
+
+
 def ray_components(cam_dir00, cam_du, cam_dv, width: int, height: int,
                    device, lattice=None):
     """Separable ray components in the grid frame, r(i, j) = dir00 +
@@ -1143,6 +1151,79 @@ class _EinsumLane:
         return (excl[None] * slab_rgb).sum(dim=1), cum[-1]
 
 
+class _SyncExit:
+    """The einsum lane's exact early exit: at each chunk's top the host
+    reads whether every pixel has saturated, waiting for the card."""
+
+    def done(self, alpha) -> bool:
+        with profiling.sync("sync.early_exit", alpha):
+            return not bool(alpha.min() < TERMINATION_THRESHOLD)
+
+    def flag(self, alpha, ci):
+        return None  # K1 runs unflagged
+
+
+class _FlagExit:
+    """The megakernel lane's exact early exit, which never waits for the
+    card.  At the top of each chunk it launches, a device flag says
+    whether every pixel has alpha >= TERMINATION_THRESHOLD (one entry of
+    the frame's flags); K1 reads it, and a set flag makes the chunk an
+    exact no-op (rgb 0, transmittance the carried one: ``color + 0`` and
+    ``1 - (1 - alpha)`` give the composite back bit for bit, since
+    1 - alpha is exact for alpha >= 0.5).  Alpha never falls, so once a
+    flag is set every later one is.  The host learns of it without
+    waiting: every ``POLL`` launched chunks the flags so far are copied
+    to pinned host memory behind an event, and the loop stops at the
+    first completed copy that holds a set flag.  The chunks launched from
+    the flagged one on change nothing, so the frame is the frame of a
+    loop that waited at every chunk's top.
+
+    Counters: ``exit.flagged`` (frames the flag ended) and
+    ``exit.late_chunks`` (chunks launched from the first flagged one on,
+    which K1 turned into no-ops).  On the CPU the flags are the host's
+    and a poll's "copy" is complete at once: the loop stops at the top of
+    the chunk after the first poll that follows the flag."""
+
+    # a copy and its event cost ~0.14 ms of host time a chunk in the TF
+    # drag's chunk loop on an H100 (PERF.md, Findings); a late chunk
+    # costs ~0.5 ms, once, in a frame that saturates
+    POLL = 8
+
+    def __init__(self, dev, n_chunks: int):
+        self.cuda = dev.type == "cuda"
+        self.flags = torch.zeros(n_chunks, dtype=torch.bool, device=dev)
+        host = (torch.zeros(n_chunks, dtype=torch.bool, pin_memory=True)
+                if self.cuda else self.flags)
+        self.host, self.seen = host, host.numpy()
+        self.launched = []  # the chunks launched, in order
+        self.pending = collections.deque()  # events of copies in flight
+
+    def done(self, alpha) -> bool:
+        pending = self.pending
+        while pending and (pending[0] is None or pending[0].query()):
+            pending.popleft()
+            if self.seen.any():
+                first = int(self.seen.argmax())
+                profiling.count("exit.flagged")
+                profiling.count("exit.late_chunks",
+                                sum(ci >= first for ci in self.launched))
+                return True
+        return False
+
+    def flag(self, alpha, ci):
+        torch.ge(alpha.min(), TERMINATION_THRESHOLD, out=self.flags[ci])
+        self.launched.append(ci)
+        if (len(self.launched) - 1) % self.POLL == 0:
+            event = None  # the CPU's flags are the host's
+            if self.cuda:
+                self.host[:ci + 1].copy_(self.flags[:ci + 1],
+                                         non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.flags.device))
+            self.pending.append(event)
+        return self.flags[ci:ci + 1]
+
+
 def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                  cam_du, cam_dv, width: int, height: int, knots=None,
                  ky_hints=None, products=None, return_products: bool = False,
@@ -1187,7 +1268,9 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
 
     z_lo = np.float32(grids.bounds_lo[0])
     dz = slab_spacing(grids, cfg.nslabs)
-    oz, oy, ox = (_f32(v, "cpu") for v in np.asarray(cam_pos, np.float32))
+    eye = np.asarray(cam_pos, np.float32)
+    oz = _f32(eye[0], "cpu")
+    oy, ox = _host_scalar(eye[1]), _host_scalar(eye[2])
     order = torch.arange(cfg.nslabs, dtype=f32)
     if cfg.flip:
         order = order.flip(0)
@@ -1226,28 +1309,41 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
     lvl_occ_p = [torch.cat([o, torch.zeros(pad, dtype=torch.bool)])
                  for o in lvl_occ]
 
+    # each slab's sweep parameter, elementwise as chunk by chunk
+    scale_p = (z_planes_p - oz) / _f32(d00[0], "cpu")
+    planes_d = []  # the (2, n_chunks, S) z-plane and scale tables on dev
+    orgs_zx = [(_host_scalar(o[0]), _host_scalar(o[2]))
+               for o in grids.origins]
+
     def chunk_tables(ci):
         sl = slice(ci * s_chunk, (ci + 1) * s_chunk)
-        z_s = z_planes_p[sl]
-        scale = (z_s - oz) / _f32(d00[0], "cpu")
-        return z_s, [o[sl] for o in lvl_occ_p], scale, act_p[sl]
+        return (z_planes_p[sl], [o[sl] for o in lvl_occ_p], scale_p[sl],
+                act_p[sl])
+
+    def chunk_planes(ci):
+        """Chunk ``ci``'s z planes and scales on the render device, rows
+        of tables uploaded once a frame from pinned memory (no wait)."""
+        if not planes_d:
+            tab = torch.stack([z_planes_p, scale_p]).reshape(2, n_chunks,
+                                                             s_chunk)
+            if dev.type == "cuda":
+                tab = tab.pin_memory().to(dev, non_blocking=True)
+            planes_d.append(tab)
+        return planes_d[0][0, ci], planes_d[0][1, ci]
 
     @profiling.in_span("products")
-    def mega_chunk_products(z_s, occ_s, scale):
-        """Camera-only products of one chunk: per level the (C+1, S, ny,
-        W) mids (z 2-tap lerp, then x 2-tap lerp to screen columns) and
-        the TF-cull value rows."""
-        with profiling.sync("sync.chunk_planes", dev, 3):
-            scale_d, z_d, ox_d = scale.to(dev), z_s.to(dev), ox.to(dev)
-        x_pos = ox_d + scale_d[:, None] * rx[None, :]  # (S, W)
+    def mega_chunk_products(ci, occ_s):
+        """Camera-only products of chunk ``ci``: per level the (C+1, S,
+        ny, W) mids (z 2-tap lerp, then x 2-tap lerp to screen columns)
+        and the TF-cull value rows."""
+        z_d, scale_d = chunk_planes(ci)
+        x_pos = ox + scale_d[:, None] * rx[None, :]  # (S, W)
         zvs_l, qx_l = [], []
         for li, L in enumerate(grids.levels):
             cw = float(1 << L)
             m = grids.masks[li]
-            org = grids.origins[li]
             nz = m.shape[0]
-            with profiling.sync("sync.level_origins", dev, 2):
-                org_z, org_x = _f32(org[0], dev), _f32(org[2], dev)
+            org_z, org_x = orgs_zx[li]
             qz = z_d / cw - org_z - 0.5
             # occupancy gate folded into the z taps (the pipeline is
             # linear): levels with no cells near the chunk contribute 0
@@ -1282,9 +1378,7 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
             for li, L in enumerate(grids.levels):
                 cw = float(1 << L)
                 nzl = grids.masks[li].shape[0]
-                with profiling.sync("sync.cull_origins", dev):
-                    org_z = _f32(grids.origins[li][0], dev)
-                qz = z_d / cw - org_z - 0.5
+                qz = z_d / cw - orgs_zx[li][0] - 0.5
                 k0 = torch.floor(qz).to(torch.int64)
                 vr = grids.vrange_zy[li]  # (C, nz, nyb, 2)
 
@@ -1305,11 +1399,10 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         return mids, orgs_y, cws_l, tf_cull
 
     def prepare(ci, keep_mids=True):
-        z_s, occ_s, scale, _ = chunk_tables(ci)
-        mids, orgs_y, cws_l, tf_cull = mega_chunk_products(z_s, occ_s, scale)
-        with profiling.sync("sync.row_planes", dev, 2):
-            oy_d, scale_d = oy.to(dev), scale.to(dev)
-        y_pos = (oy_d + scale_d[:, None] * ry[None, :]).contiguous()  # (S, H)
+        _, occ_s, scale, _ = chunk_tables(ci)
+        mids, orgs_y, cws_l, tf_cull = mega_chunk_products(ci, occ_s)
+        scale_d = chunk_planes(ci)[1]
+        y_pos = (oy + scale_d[:, None] * ry[None, :]).contiguous()  # (S, H)
         prep = prepare_chunk(mids, orgs_y, cws_l, y_pos, h, w, tiles=tiles,
                              adaptive_stride=cfg.adaptive_stride,
                              tf_cull=tf_cull)
@@ -1349,12 +1442,13 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
         carry = torch.as_tensor(carry, dtype=f32).to(dev)
         color = carry[:, :3].T.reshape(3, h, w).contiguous()
         alpha = carry[:, 3].reshape(h, w).contiguous()
+    # exact early exit once every pixel saturated: the einsum lane waits
+    # for the card at each chunk's top, the megakernel lane never does
+    early_exit = _SyncExit() if lane is not None else _FlagExit(dev,
+                                                                n_chunks)
     for ci in range(n_chunks):
         with profiling.span("chunk"):
-            # exact early exit: every pixel saturated
-            with profiling.sync("sync.early_exit", alpha):
-                saturated = not bool(alpha.min() < TERMINATION_THRESHOLD)
-            if saturated:
+            if early_exit.done(alpha):
                 break
             z_s, occ_s, scale, a_s = chunk_tables(ci)
             live = a_s & (scale > 1e-6)
@@ -1374,10 +1468,11 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
                 profiling.count("cache.light")
                 prep = light[ci - len(full)][0]
                 prep = prep._replace(
-                    mids=tuple(mega_chunk_products(z_s, occ_s, scale)[0]))
+                    mids=tuple(mega_chunk_products(ci, occ_s)[0]))
             else:
                 profiling.count("cache.none")
                 prep = prepare(ci)[0]
+            done = early_exit.flag(alpha, ci)
             # K7 takes the host's live mask by value and returns it on
             # the card for K1
             act_f, act_all_f, live_f = combine_activity(
@@ -1386,9 +1481,10 @@ def render_slabs(grids: LevelGrids, fs, cfg: SlabConfig, cam_pos, cam_dir00,
             rgb, trans = run_chunk(
                 prep, sec, live_f, tables, dz, h, w, act_f=act_f,
                 act_all_f=act_all_f, prev_trans=(1.0 - alpha).contiguous(),
-                t_stop=None if stop_img is None else (scale, stop_img),
+                t_stop=(None if stop_img is None
+                        else (chunk_planes(ci)[1], stop_img)),
                 tiles=tiles, adaptive_stride=cfg.adaptive_stride,
-                plain=cfg.plain_sweep)
+                done=done, plain=cfg.plain_sweep)
             # absolute-transmittance carry: outputs arrive premultiplied
             color = color + rgb
             alpha = 1.0 - trans

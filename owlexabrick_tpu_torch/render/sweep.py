@@ -411,14 +411,16 @@ def sweep_chunk_reference(prep: ChunkPrep, sec: torch.Tensor,
                           live: torch.Tensor, tables: ClassifyTables, dz,
                           height: int, width: int, *, act_f, act_all_f,
                           prev_trans=None, t_stop=None, tiles=(0, 0),
-                          adaptive_stride: bool = False):
+                          adaptive_stride: bool = False, done=None):
     """Plain-torch K1: the same function as ``csrc/sweep.cu``, vectorized
     over tiles instead of one thread block per tile.  Per tile the skip
     decisions (stride weight, saturation, field support) and the knot
     window are taken exactly as the kernel takes them.  ``t_stop``:
     optional (t_slab (S,), t_stop (H, W)), the surface stop: a sample
-    counts only where t_slab[s] < t_stop at its pixel.  Returns
-    (rgb (3, H, W), trans (H, W)) premultiplied, absolute transmittance.
+    counts only where t_slab[s] < t_stop at its pixel.  ``done``:
+    optional (1,) bool, the early exit's flag: when set, every tile skips
+    as one that earlier chunks saturated.  Returns (rgb (3, H, W), trans
+    (H, W)) premultiplied, absolute transmittance.
     """
     f32 = torch.float32
     dev = sec.device
@@ -461,6 +463,9 @@ def sweep_chunk_reference(prep: ChunkPrep, sec: torch.Tensor,
     for s in range(s_):
         w_s = torch.where(all_act, 1.0, act_f[s])  # (R, Ct)
         do = (w_s > 0.0) & (t_run.amax(-1) > 0.005)
+        if done is not None:
+            # a set flag: every tile skips, as one earlier chunks saturated
+            do = do & ~done
         if not bool(live_h[s]) or not bool(do.any()):
             continue
         # y-interpolation of every level's mids, levels in order
@@ -594,7 +599,7 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
                      live: torch.Tensor, tables: ClassifyTables, dz,
                      height: int, width: int, *, act_f, act_all_f,
                      prev_trans=None, t_stop=None, tiles=(0, 0),
-                     adaptive_stride: bool = False):
+                     adaptive_stride: bool = False, done=None):
     """Launch K1 (``csrc/sweep.cu``) on the current stream.  Same
     arguments and result as ``sweep_chunk_reference``.  Raises on any
     input the kernel does not take; never falls back."""
@@ -632,6 +637,8 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
         t_stop_img = t_stop[1]
         check("t_slab", t_slab, (s_,))
         check("t_stop", t_stop_img, (h, w))
+    if done is not None:
+        kernels.check_tensor("done", done, dev, (1,), torch.bool)
     check("domains", tables.domains, (n_ch, 2))
     if tables.compressed:
         m_k = tables.kpos.shape[1]
@@ -658,7 +665,8 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
     ptrs = [prep.y_pos, sec, live_f, act_f, act_all_f, prev_trans,
             tables.domains, tables.kpos, tables.ksd, tables.kbase,
             tables.kcum, tables.lut, tables.dlut, carry,
-            out[0], out[1], out[2], out[3], t_slab, t_stop_img, *prep.mids]
+            out[0], out[1], out[2], out[3], t_slab, t_stop_img, done,
+            *prep.mids]
     flts = [np.float32(dz), *prep.cell_widths, *prep.origins_y]
     ptr_a = np.asarray([ptr(t) for t in ptrs], np.uint64)
     flt_a = np.asarray(flts, np.float32)
@@ -675,16 +683,19 @@ def sweep_chunk_cuda(prep: ChunkPrep, sec: torch.Tensor,
 def run_chunk(prep: ChunkPrep, sec, live, tables: ClassifyTables, dz,
               height: int, width: int, *, act_f, act_all_f,
               prev_trans=None, t_stop=None, tiles=(0, 0),
-              adaptive_stride: bool = False, plain: bool = False):
+              adaptive_stride: bool = False, done=None,
+              plain: bool = False):
     """Sweep one prepared chunk: K1 for CUDA tensors, the plain-torch
     version for CPU tensors (or anywhere when ``plain``, the explicit
     choice a kernel-vs-plain comparison makes).  ``t_stop``: optional
-    (t_slab (S,), t_stop (H, W)), as in ``pallas_sweep.run_chunk``."""
+    (t_slab (S,), t_stop (H, W)), as in ``pallas_sweep.run_chunk``;
+    ``done``: optional (1,) bool on the device, the early exit's flag
+    (set: rgb 0 and ``prev_trans`` back, the slabs left unswept)."""
     fn = (sweep_chunk_reference if plain or sec.device.type == "cpu"
           else sweep_chunk_cuda)
     return fn(prep, sec, live, tables, dz, height, width, act_f=act_f,
               act_all_f=act_all_f, prev_trans=prev_trans, t_stop=t_stop,
-              tiles=tiles, adaptive_stride=adaptive_stride)
+              tiles=tiles, adaptive_stride=adaptive_stride, done=done)
 
 
 def sweep_chunk(mids, origins_y, cell_widths, y_pos, sec, live, luts,

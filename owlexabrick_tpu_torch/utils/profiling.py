@@ -15,8 +15,11 @@ printouts.  Equivalents here:
     places the host waits for the card (``sync.<site>``), the camera-
     product cache tier that served each chunk swept (``cache.full``,
     ``cache.light``: its mids rebuilt, ``cache.none``: built from
-    scratch) and the bytes of mids the camera products built
-    (``products.mid_bytes``)
+    scratch), the bytes of mids the camera products built
+    (``products.mid_bytes``), and the megakernel lane's early exit, which
+    never waits: the frames its device flag ended (``exit.flagged``)
+    and the chunks launched from the flagged one on, which K1 turned
+    into no-ops (``exit.late_chunks``)
   * ``span`` / ``frame`` / ``sync`` / ``in_span`` — named spans of the
     fast path on the host's wall clock (``time.time_ns()``, the clock
     ``torch.profiler``'s device events are stamped on), recorded only

@@ -1,0 +1,6 @@
+"""``host_syncs_per_frame`` in ``impact1024.tev_drag``, the multi-field cell,
+where it moves ``frame_ms``: the same reading under a name of its own."""
+
+from portbench.metric_alias import alias
+
+read = alias(__file__).read

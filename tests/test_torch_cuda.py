@@ -1,9 +1,11 @@
 """PyTorch port on the card: K1 (csrc/sweep.cu, with and without its
-surface stop, at 2 to 16 levels), K7 (csrc/sweep.cu, bit for bit),
+surface stop, under a clear and a set early-exit flag, at 2 to 16
+levels), K7 (csrc/sweep.cu, bit for bit),
 K2a/K2b (csrc/warp.cu), K3 (from the mids, at 1 to 12 levels), K4, K5
 (csrc/xf.cu) and K6 (csrc/mids.cu) against their plain-torch versions
 (K1, K3 and K4 also through a 32-texel LUT, and K3 on the unclipped
-chunks of ``megakernel=False``), and the port's main path, einsum
+chunks of ``megakernel=False``), and the port's main path (its flagged
+early exit too), einsum
 lane and iso path, the packed exact march (against the classic one
 too), the offline CLI's ``--fast`` runs and the web
 viewer's frames (``aox=1`` among them) on CUDA against the same paths on
@@ -27,8 +29,8 @@ from owlexabrick_tpu_torch.render import sweep as PS
 from owlexabrick_tpu_torch.utils.profiling import counts as COUNTS
 
 from torch_sweep_inputs import (
-    H, K3_MIDS_CASES, TILES, W, deep_levels, k3_mids_inputs, k6_level_cases,
-    seeded_inputs)
+    EXIT_H, EXIT_W, H, K3_MIDS_CASES, TILES, W, deep_levels, exit_scene,
+    k3_mids_inputs, k6_level_cases, seeded_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,11 +51,13 @@ def _texels(lut, n):
 
 
 def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
-                      levels=None, texels=128):
+                      levels=None, texels=128, flag=None):
     """K1 and its plain twin on one seeded chunk (``levels``:
     ``deep_levels``' table, else two levels; ``texels``: the dense LUT's
-    texels); returns K1's launch shape after checking every output value
-    within 1e-5."""
+    texels; ``flag``: the early exit's flag, None, "clear" or "set");
+    returns K1's launch shape after checking every output value within
+    1e-5, and, under a set flag, that both return exactly rgb 0 and the
+    carried transmittance (1 without a carry)."""
     from owlexabrick_tpu_torch.render.slabs import compress_pwl
 
     d = seeded_inputs(5, channels=channels, levels=levels)
@@ -82,6 +86,8 @@ def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
               adaptive_stride=True,
               prev_trans=(torch.from_numpy(d["pt"]).to(cuda) if carry
                           else None))
+    if flag is not None:
+        kw["done"] = torch.tensor([flag == "set"], device=cuda)
     if stop:
         # per-slab sweep parameters and a per-pixel stop cutting about
         # half the slabs, a quarter of the pixels exactly at a slab
@@ -102,6 +108,11 @@ def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
     p = torch.cat([rgb_p, t_p[None]])
     assert torch.isfinite(k).all()
     assert float((k - p).abs().max()) < 1e-5
+    if flag == "set":
+        t0 = kw["prev_trans"] if carry else torch.ones_like(t_k)
+        for rgb, t in ((rgb_k, t_k), (rgb_p, t_p)):
+            assert torch.equal(rgb, torch.zeros_like(rgb))
+            assert torch.equal(t, t0)
     return PS.k1_launch_shape(prep, tables, H, W, tiles=tiles,
                               adaptive_stride=True, has_pt=carry,
                               has_stop=stop)
@@ -111,8 +122,10 @@ def _k1_against_plain(cuda, dense, carry, stop, channels, tiles=TILES,
 @pytest.mark.parametrize("stop", [False, True], ids=["free", "stop"])
 @pytest.mark.parametrize("dense", [False, True], ids=["knots", "dense"])
 @pytest.mark.parametrize("carry", [False, True], ids=["fresh", "carried"])
-def test_k1_matches_plain_version(cuda, dense, carry, stop, channels):
-    shape = _k1_against_plain(cuda, dense, carry, stop, channels)
+@pytest.mark.parametrize("flag", [None, "clear", "set"],
+                         ids=["unflagged", "flag_clear", "flag_set"])
+def test_k1_matches_plain_version(cuda, dense, carry, stop, channels, flag):
+    shape = _k1_against_plain(cuda, dense, carry, stop, channels, flag=flag)
     assert shape["carry_on_chip"] == 1 and shape["cluster"] > 1
 
 
@@ -294,6 +307,47 @@ def test_main_path_on_card_matches_cpu(cuda):
         24).cpu()
     assert float((plain - want).abs().max()) < 1e-5
     assert float(want[:, 3].max()) > 0.3
+
+
+@pytest.mark.parametrize("poll", [None, 1], ids=["poll", "poll_every"])
+@pytest.mark.parametrize("carry", [None, "partial", "saturated"],
+                         ids=["fresh", "partial", "saturated"])
+def test_flag_exit_on_card_matches_cpu(cuda, carry, poll, monkeypatch,
+                                       record_property):
+    """The early exit's scene (every pixel crosses alpha 0.98 in chunk 3 of
+    8; with the saturated carry, before chunk 0) on the megakernel lane:
+    the card's frame, whose loop never waits and whose K1 reads the flag,
+    equals the frame of the loop that waits at every chunk's top bit for
+    bit, and the CPU's frame within 1e-5, with the flags copied to the
+    host every ``_FlagExit.POLL`` chunks or every chunk; the flag's
+    counters are reported (how many chunks run flagged depends on how far
+    the host ran ahead)."""
+    from owlexabrick_tpu_torch.render import slabs
+
+    if poll is not None:
+        monkeypatch.setattr(slabs._FlagExit, "POLL", poll)
+    g_cpu, fs, cfg, cam, rgba0 = exit_scene("cpu", carry)
+    g_gpu = g_cpu.to(cuda)
+    c0 = dict(COUNTS)
+    got = slabs.render_slabs_camera(g_gpu, fs, cfg, cam, EXIT_W, EXIT_H,
+                                    carry=rgba0).cpu()
+    flagged = COUNTS["exit.flagged"] - c0.get("exit.flagged", 0)
+    late = COUNTS["exit.late_chunks"] - c0.get("exit.late_chunks", 0)
+    record_property("exit.flagged", flagged)
+    record_property("exit.late_chunks", late)
+    print(f"exit.flagged {flagged}, exit.late_chunks {late}")
+    assert flagged in (0, 1) and late >= flagged
+    assert flagged or late == 0
+    assert COUNTS["sync.early_exit"] == c0.get("sync.early_exit", 0)
+    with monkeypatch.context() as mp:
+        mp.setattr(slabs, "_FlagExit", lambda dev, n: slabs._SyncExit())
+        ref = slabs.render_slabs_camera(g_gpu, fs, cfg, cam, EXIT_W, EXIT_H,
+                                        carry=rgba0).cpu()
+    assert torch.equal(got, ref)
+    want = slabs.render_slabs_camera(g_cpu, fs, cfg, cam, EXIT_W, EXIT_H,
+                                     carry=rgba0)
+    assert float((got - want).abs().max()) < 1e-5
+    assert bool((got[:, 3] >= 0.98).all())
 
 
 @pytest.mark.parametrize("c", [3, 4])

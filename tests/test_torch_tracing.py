@@ -2,12 +2,15 @@
 profiling.py``): spans record only under a ``torch.profiler`` session,
 a Renderer frame is a ``frame`` span whose chunk loop nests in it with
 its counter deltas, and the benchmark's five readers of them
-(``portbench/metrics``) give numbers from such a session.  The test
-marked ``cuda`` holds the spans' clock to the profiler's device events
-on the card."""
+(``portbench/metrics``, with two of them under the impact cell's names)
+give numbers from such a session.  The tests
+marked ``cuda`` hold the spans' clock to the profiler's device events
+on the card, and hold the megakernel lane's chunk loop to no per-chunk
+wait for the card there."""
 
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -17,7 +20,8 @@ from owlexabrick_tpu_torch.utils import profiling
 N, W, H = 64, 48, 32
 POSES = {"aligned": [0.5, 0.5, 2.2], "tilted": [0.9, 0.8, 2.2]}
 READERS = ("host_syncs_per_frame", "sync_wait_ms", "activity_host_ms",
-           "chunk_loop_host_ms", "products_device_ms")
+           "chunk_loop_host_ms", "products_device_ms",
+           "host_syncs_per_frame.impact", "sync_wait_ms.impact")
 
 
 def _renderer(pose):
@@ -171,3 +175,92 @@ def test_span_shares_the_device_clock():
     gap = (ev[1][1], ev[2][0])
     assert abs(sp[0].start_ns - gap[0]) < 500_000, (sp[0], gap)
     assert abs(sp[0].end_ns - gap[1]) < 500_000, (sp[0], gap)
+
+
+# the per-chunk sites the megakernel lane's chunk loop and camera products
+# no longer have: nothing in the loop waits for the card
+LOOP_SYNCS = ("sync.early_exit", "sync.chunk_planes", "sync.level_origins",
+              "sync.cull_origins", "sync.row_planes")
+
+
+def _card_frames(budget_mb, cfg=None):
+    """Three frames of the aligned pose on the card through a Renderer
+    whose camera-product cache has ``budget_mb`` (about half the pose's
+    products: the partial tier), under a CPU-only profiler: the first
+    builds every chunk's products, the next two take the cache's full
+    and light chunks (the light ones' mids rebuilt).  Returns (the
+    frames' words, the session's frame records, the Renderer)."""
+    import dataclasses
+
+    from owlexabrick_tpu_torch.bench_scene import exajet_pattern_cells
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig, Renderer
+
+    class Budget(Renderer):
+        def _slab_config(self, grids):
+            return dataclasses.replace(super()._slab_config(grids),
+                                       camera_cache_max_mb=budget_mb)
+
+    r = Budget(exajet_pattern_cells(N), W, H,
+               cfg=cfg or RenderConfig(num_channels=1), device="cuda")
+    eye = [c * N for c in POSES["aligned"]]
+    r.update_camera(Camera.look_at(eye, [N / 2] * 3, [0, 1, 0], 45.0, W, H))
+    assert r.enable_fast_path()
+    words = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            r.reset_accumulation()
+            words.append(r.render())
+    return words, profiling.session().frames, r
+
+
+@pytest.mark.cuda
+def test_megakernel_chunk_loop_never_waits(monkeypatch):
+    """On the card, an uncached frame and two frames from the partial
+    cache tier count none of the chunk loop's old sync sites, and their
+    frames and cached products are bit for bit those of the same frames
+    with the camera products' eye and level origins on the card as
+    tensors (what each product then copied to the card); a frame of the
+    einsum lane (gradient shading) still waits at each chunk's top."""
+    from owlexabrick_tpu_torch.render import slabs
+    from owlexabrick_tpu_torch.render.renderer import RenderConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    words, frames, r = _card_frames(3.0)
+    assert len(frames) == 3
+    tiers = [{k: v for k, v in f.counts.items() if k.startswith("cache.")}
+             for f in frames]
+    assert tiers[0].get("cache.none", 0) > 0
+    assert tiers[1].get("cache.light", 0) > 0 and tiers[1] == tiers[2]
+    for f in frames:
+        assert f.counts.get("launch.K1", 0) > 0
+        assert not set(f.counts) & set(LOOP_SYNCS), f.counts
+        assert f.counts.get("sync.readback") == 1
+    products = r._cam_cache["products"]
+
+    monkeypatch.setattr(slabs, "_host_scalar",
+                        lambda v: slabs._f32(v, "cuda"))
+    words_d, _, r_d = _card_frames(3.0)
+    for a, b in zip(words, words_d):
+        np.testing.assert_array_equal(a, b)
+    products_d = r_d._cam_cache["products"]
+    for tier in ("full", "light"):
+        assert len(products[tier]) == len(products_d[tier]) > 0
+        for (prep, scale), (prep_d, scale_d) in zip(products[tier],
+                                                     products_d[tier]):
+            assert torch.equal(scale, scale_d)
+            for name, a in prep._asdict().items():
+                b = getattr(prep_d, name)
+                if isinstance(a, torch.Tensor):
+                    assert torch.equal(a, b), name
+                elif name == "mids":
+                    assert len(a) == len(b)
+                    assert all(torch.equal(x, y) for x, y in zip(a, b))
+                else:
+                    assert a == b, name
+    monkeypatch.undo()
+
+    _, frames_e, _ = _card_frames(
+        3.0, RenderConfig(num_channels=1, gradient_shading_dvr=True))
+    assert all(f.counts.get("sync.early_exit", 0) > 0 for f in frames_e)

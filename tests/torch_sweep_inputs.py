@@ -209,3 +209,36 @@ def camera_rays(w, h, eye, at, seed=1):
     o = np.broadcast_to(o0, d.shape).copy()
     o += rng.normal(0, 1e-3, o.shape).astype(np.float32)
     return o.astype(np.float32), d.astype(np.float32)
+
+
+# the early exit's scene: the blobs lattice at 32^3 (cells tile it), seen
+# head on through a 20 degree frustum that stays inside its sides, under
+# a flat opacity of 0.3: every pixel crosses alpha 0.98 in chunk 3 of 8
+EXIT_W, EXIT_H = 40, 32
+
+
+def exit_scene(device, carry=None):
+    """(grids, frame state, SlabConfig, camera, carry) of the early exit's
+    scene on ``device``.  ``carry``: None; "partial", a seeded (P, 4)
+    premultiplied rgba with alpha in [0, 0.6); or "saturated", one with
+    every alpha in [0.98, 0.995), so the flag is set at the first chunk."""
+    from owlexabrick_tpu_torch.bench_scene import slab_scene_grids
+    from owlexabrick_tpu_torch.render.camera import Camera
+    from owlexabrick_tpu_torch.render.frame import make_frame_state
+    from owlexabrick_tpu_torch.render.slabs import SlabConfig
+
+    grids, meta = slab_scene_grids("blobs", 32, device=device)
+    cam = Camera.look_at([16, 16, 70], [16, 16, 16], [0, 1, 0], 20.0,
+                         EXIT_W, EXIT_H)
+    fs = make_frame_state(cam, 1, [[0.0, meta["value_max"]]], dt=1.0,
+                          opacities=np.full(128, 0.3, np.float32))
+    cfg = SlabConfig(nslabs=32, chunk=4, saturate_collapse=False)
+    rgba = None
+    if carry is not None:
+        rng = np.random.default_rng(23)
+        p = EXIT_W * EXIT_H
+        a = (rng.uniform(0.0, 0.6, p) if carry == "partial"
+             else rng.uniform(0.98, 0.995, p)).astype(np.float32)
+        rgb = rng.uniform(0.0, 1.0, (p, 3)).astype(np.float32) * a[:, None]
+        rgba = np.concatenate([rgb, a[:, None]], 1)
+    return grids, fs, cfg, cam, rgba
